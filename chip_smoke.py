@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's collective path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's collective and serving paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,20 +12,40 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              slots [4, 33] (a ragged tile edge): the transport kernel
              bitwise against its plain PyTorch version (f32, bf16) and
              against the numpy oracle ``run_reference`` (f32); chunks=2
-             bit-identical; one launch per run;
-3. main    — launch counters reset, then the main path once at sizes
-             users run: Topology -> selector -> builder -> executor ->
-             ``KernelTransport.run_global`` for a 25 MiB-per-rank
-             gradient allreduce on 8 and 16 ranks and a MoE alltoall
-             dispatch, and the fused ``rmsnorm_allreduce`` / plain
-             ``rmsnorm`` ops at qwen3-14b and gemma2-2b widths; counters
-             read; every output checked against its plain version and
-             the collective's meaning;
-4. timing  — per case, the kernel, its plain version and a library
+             bit-identical; one launch per run.  Then both flash-
+             attention kernels against their plain version on random
+             floats: head_dim 64/128/256, GQA groups 1/2/8, causal,
+             window and softcap alone and together, non-causal, f32 and
+             bf16 (the gather kernel with a random permutation and 1/8
+             of the rows at -1, which must come out exact zeros);
+3. main    — launch counters reset, then the collective path once at
+             sizes users run: Topology -> selector -> builder ->
+             executor -> ``KernelTransport.run_global`` for a 25 MiB-
+             per-rank gradient allreduce on 8 and 16 ranks and a MoE
+             alltoall dispatch, and the fused ``rmsnorm_allreduce`` /
+             plain ``rmsnorm`` ops at qwen3-14b and gemma2-2b widths;
+             counters read; every output checked against its plain
+             version and the collective's meaning;
+4. serve   — gemma2-2b at full width (26 layers, random weights from a
+             seeded generator on the card): (a) counters reset, the
+             kernel prefill of one 8192-token prompt, counters read (26
+             flash launches), each layer's kernel output checked
+             against the plain ``core_attention`` on the same q/k/v and
+             the logits against the plain prefill; (b) the launcher's
+             loop at batch 4, prompt 32, gen 16, in bf16 (reported,
+             beside the plain prefill as the control) and with the same
+             weights widened to f32, where the teacher-forced decode
+             logits must match the kernel prefill's at the reference's
+             model tolerance.  Then the dispatch-gather op
+             ``flash_attention(q_rows=...)`` at a gemma2 layer's shape;
+5. timing  — per case, the kernel, its plain version and a library
              call: CUDA events around 20 calls enqueued back to back,
-             divided by 20, median of 5 such batches (after warm-up);
-             the kernel's own device time read by name from
-             ``torch.profiler``; beside the bound at 3.35 TB/s.
+             divided by 20, median of 5 such batches (after warm-up;
+             fewer for calls over 100 ms, stated in the line); the
+             kernel's own device time read by name from
+             ``torch.profiler``; beside the bound (bytes at 3.35 TB/s,
+             or operations at 67 TFLOP/s f32 / 989 TFLOP/s bf16 tensor
+             cores for attention).
 
 The last two lines of standard output are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -47,8 +68,11 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
+BF16_TC_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 REPS = 20                        # calls per timed batch
 BATCHES = 5
+LONG_CALL_MS = 100.0             # calls longer than this get fewer reps
+LONG_REPS, LONG_BATCHES = 3, 3
 MIB = 1 << 20
 ROOT = Path(__file__).resolve().parent
 
@@ -81,8 +105,12 @@ def main() -> int:
     print(card, flush=True)
 
     parity(torch, dev)
+    attn_err = attention_parity(torch, dev)
     cases = main_path(torch, dev)
+    served = serve_path(torch, dev)
+    gathered = gather_path(torch, dev, served)
     kernels = timing(torch, cases)
+    kernels += attention_timing(torch, served, gathered, attn_err)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -312,41 +340,65 @@ def check_output(torch, c) -> None:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, *args) -> float:
-    """Milliseconds per call: CUDA events around REPS calls enqueued back
-    to back, divided by REPS; the median over BATCHES batches.  The host
-    enqueues ahead of the device, so a call's dispatch hides behind the
-    kernels before it unless the call is bound by the host."""
+def time_ms(torch, fn, *args, reps=REPS, batches=BATCHES) -> float:
+    """Milliseconds per call: CUDA events around ``reps`` calls enqueued
+    back to back, divided by ``reps``; the median over ``batches``
+    batches.  The host enqueues ahead of the device, so a call's
+    dispatch hides behind the kernels before it unless the call is bound
+    by the host."""
     for _ in range(3):
         fn(*args)
     torch.cuda.synchronize()
     per_call = []
-    for _ in range(BATCHES):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn(*args)
         b.record()
         b.synchronize()
-        per_call.append(a.elapsed_time(b) / REPS)
+        per_call.append(a.elapsed_time(b) / reps)
     return statistics.median(per_call)
+
+
+def time_long_ms(torch, fn, *args) -> tuple[float, str]:
+    """``time_ms`` with REPS x BATCHES, or LONG_REPS x LONG_BATCHES when
+    one call takes longer than LONG_CALL_MS; returns (ms, the reps
+    used)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn(*args)
+    b.record()
+    b.synchronize()
+    if a.elapsed_time(b) > LONG_CALL_MS:
+        return (time_ms(torch, fn, *args, reps=LONG_REPS,
+                        batches=LONG_BATCHES),
+                f"{LONG_REPS} calls x {LONG_BATCHES} batches")
+    return time_ms(torch, fn, *args), f"{REPS} calls x {BATCHES} batches"
 
 
 KERNEL_SYMBOLS = {"schedule_exec": "schedule_exec_kernel",
                   "rmsnorm_reduce": "rmsnorm_rows_kernel",
-                  "rmsnorm": "rmsnorm_rows_kernel"}
+                  "rmsnorm": "rmsnorm_rows_kernel",
+                  # either body: flash_attention_mma_kernel (bf16
+                  # tensor cores) or flash_attention_kernel (CUDA cores)
+                  "flash_attention": "flash_attention_",
+                  "flash_attention_gather": "flash_attention_"}
 
 
-def device_ms(torch, kernel: str, fn, *args) -> float | None:
+def device_ms(torch, kernel: str, fn, *args, reps=REPS) -> float | None:
     """The kernel's own device time per launch, read by its symbol from
-    a ``torch.profiler`` trace of REPS calls (None when the trace holds
-    no device time for it)."""
+    a ``torch.profiler`` trace of ``reps`` calls (None when the trace
+    holds no device time for it)."""
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
+        for _ in range(reps):
             fn(*args)
         torch.cuda.synchronize()
     us = launches = 0
@@ -462,6 +514,414 @@ def timing(torch, cases) -> list[dict]:
                      "library_ms": first["library_ms"],
                      "cases": [c["row"] for c in mine]})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# flash attention: parity, the serving path, the gather op, timing
+# ---------------------------------------------------------------------------
+
+# the reference's kernel tolerances (tests/test_kernels.py:20 and :61)
+ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+# the reference's model tolerance (tests/test_kernels.py:161)
+MODEL_ATOL, MODEL_RTOL = 0.15, 0.05
+ATTN_VARIANTS = [dict(causal=True), dict(causal=True, window=64),
+                 dict(causal=True, softcap=50.0),
+                 dict(causal=True, window=64, softcap=50.0),
+                 dict(causal=False), dict(causal=False, window=64,
+                                          softcap=30.0)]
+SERVE_ARCH = "gemma2-2b"
+PREFILL_TOKENS = 8192            # past the 4096 window of the local layers
+LAUNCH_BATCH, LAUNCH_PROMPT, LAUNCH_GEN = 4, 32, 16
+
+
+def _close(torch, got, want, atol, rtol, what) -> float:
+    """Max |got - want|; raises unless |got - want| <= atol + rtol |want|
+    everywhere."""
+    diff = (got.float() - want.float()).abs()
+    bad = diff > atol + rtol * want.float().abs()
+    _require(not bool(bad.any()),
+             f"{what}: {int(bad.sum())} elements off by up to "
+             f"{diff.max().item():.4g} (atol {atol}, rtol {rtol})")
+    return diff.max().item()
+
+
+def _dead_rows(torch, gen, B, S, dev):
+    """A random permutation per batch row with 1/8 of its slots at -1."""
+    rows = torch.stack([torch.randperm(S, generator=gen, device=dev)
+                        for _ in range(B)]).to(torch.int32)
+    rows[:, ::8] = -1
+    return rows
+
+
+def attention_parity(torch, dev) -> dict:
+    """Both kernels against their plain version; returns the max |err|
+    per kernel."""
+    from repro_torch import cuda
+    from repro_torch.kernels.attention.kernel import (flash_attention_bshd,
+                                                      flash_attention_plain)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    checked, worst = 0, {}
+    shapes = [(D, 8, 8 // g, 256) for D in (64, 128, 256) for g in (1, 2, 8)]
+    shapes.append((128, 8, 4, 200))              # ragged last tile
+    shapes.append((20, 6, 2, 160))               # bf16 on the CUDA cores
+    for D, H, K, S in shapes:
+        for dtname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtname)
+            q, k, v = (torch.randn(shape, generator=gen, device=dev,
+                                   dtype=dtype)
+                       for shape in ((2, S, H, D), (2, S, K, D), (2, S, K, D)))
+            rows = _dead_rows(torch, gen, 2, S, dev)
+            tol = ATTN_TOL[dtname]
+            for kw in ATTN_VARIANTS:
+                for q_rows in (None, rows):
+                    name = ("flash_attention" if q_rows is None
+                            else "flash_attention_gather")
+                    n0 = cuda.LAUNCHES[name]
+                    got = flash_attention_bshd(q, k, v, q_rows=q_rows, **kw)
+                    torch.cuda.synchronize()
+                    _require(cuda.LAUNCHES[name] == n0 + 1,
+                             f"{name}: not one launch per call")
+                    want = flash_attention_plain(q, k, v, q_rows=q_rows, **kw)
+                    label = f"{name} D={D} H={H} K={K} S={S} {dtname} {kw}"
+                    err = _close(torch, got, want, tol, tol, label)
+                    if q_rows is not None:
+                        _require(not bool(got[rows < 0].any()),
+                                 f"{label}: dead rows not exact zeros")
+                    worst[name] = max(worst.get(name, 0.0), err)
+                    checked += 1
+    print(f"attention parity: {checked} kernel calls (head_dim 64/128/256, "
+          f"20 and 128 at ragged lengths, groups 1/2/8/3, "
+          f"{len(ATTN_VARIANTS)} mask/softcap variants, f32 "
+          f"and bf16, plain and gather) within atol=rtol 3e-5 (f32) / "
+          f"2e-2 (bf16); max |err| {worst}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return worst
+
+
+def serve_path(torch, dev) -> dict:
+    """gemma2-2b at full width: (a) the kernel prefill of one 8192-token
+    prompt, (b) the launcher's loop, each with the counters reset just
+    before and read just after."""
+    from repro_torch import configs, cuda
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models.common import attn_mask
+    from repro_torch.serve import ServeOptions, make_prefill_step
+
+    cfg = configs.get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"serve: {SERVE_ARCH} at full width, {cfg.n_layers} layers, "
+          f"{cfg.param_count():,} parameters (bf16, random from seed 0) "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    V = cfg.vocab_size
+    prefill = make_prefill_step(cfg, ServeOptions(use_kernel=True))
+    prefill_plain = make_prefill_step(cfg, ServeOptions(use_kernel=False))
+    gen.manual_seed(1)
+    prompt = torch.randint(2, V, (1, PREFILL_TOKENS), generator=gen,
+                           device=dev)
+    prefill(params, prompt[:, :256])             # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # (a) the kernel prefill, recording each layer's attention inputs
+    records = []
+    real_op = attn_ops.flash_attention
+
+    def recording(q, k, v, *args, **kw):
+        out = real_op(q, k, v, *args, **kw)
+        records.append((q, k, v, kw, out))
+        return out
+
+    attn_ops.flash_attention = recording
+    try:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill(params, prompt)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+    finally:
+        attn_ops.flash_attention = real_op
+    print(f"serve (a) prefill: B=1 S={PREFILL_TOKENS} in {dt * 1e3:.3f} ms "
+          f"= {PREFILL_TOKENS / dt:.1f} tokens/s (host clock around the "
+          f"step, synchronized), launches {launches}", flush=True)
+    _require(launches["flash_attention"] == cfg.n_layers,
+             f"prefill launched flash_attention "
+             f"{launches['flash_attention']} times, not {cfg.n_layers}")
+    _require(len(records) == cfg.n_layers, "not one attention per layer")
+    _require(logits.shape == (1, PREFILL_TOKENS, V)
+             and bool(torch.isfinite(logits).all()), "prefill logits")
+
+    pos = torch.arange(PREFILL_TOKENS, device=dev)[None]
+    layer_err = 0.0
+    for i, (q, k, v, kw, out) in enumerate(records):
+        mask = attn_mask(pos, pos, causal=True, window=kw["window"])
+        plain = A.core_attention(q, k, v, mask, cap=kw["softcap"])
+        layer_err = max(layer_err, _close(
+            torch, out, plain, ATTN_TOL["bfloat16"], ATTN_TOL["bfloat16"],
+            f"layer {i} (window {kw['window']}) kernel vs core_attention"))
+        del plain, mask
+    print(f"serve (a) layers: all {len(records)} kernel outputs within "
+          f"2e-2 of the plain core_attention on the same q/k/v, max |err| "
+          f"{layer_err:.4g}", flush=True)
+
+    plain_logits = prefill_plain(params, prompt)
+    torch.cuda.synchronize()
+    max_err, agree = 0.0, 0
+    for c in range(0, PREFILL_TOKENS, 1024):
+        a, b = logits[0, c:c + 1024], plain_logits[0, c:c + 1024]
+        max_err = max(max_err, (a.float() - b.float()).abs().max().item())
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+    print(f"serve (a) logits vs the plain prefill: max |err| {max_err:.4g}, "
+          f"top-1 agrees at {agree}/{PREFILL_TOKENS} = "
+          f"{agree / PREFILL_TOKENS:.4f} of positions", flush=True)
+    del plain_logits, logits
+
+    # (b) the launcher's loop, then the kernel prefill of its prompts:
+    # in bf16 (the serving dtype; reported) and with the same weights
+    # widened to f32 (held to the model tolerance).  In bf16 the gemma
+    # residual stream sits near |x| ~ 48 (the sqrt(d_model) embed scale),
+    # where one bf16 ulp of a layer's update flips the sum by 0.25-1, so
+    # any two roundings of the same model part ways over 26 layers: the
+    # plain prefill is reported beside the kernel prefill as the control.
+    gen.manual_seed(2)
+    prompts = torch.randint(2, V, (LAUNCH_BATCH, LAUNCH_PROMPT),
+                            generator=gen, device=dev)
+    launcher.generate(params, cfg, prompts[:, :4], 2)     # warm-up
+    torch.cuda.synchronize()
+    steps = LAUNCH_PROMPT + LAUNCH_GEN - 1
+    params32 = M.from_state(cfg, {k: t.float() for k, t in
+                                  params.state_dict().items()})
+    dec_err = None
+    for dtname, weights in (("bfloat16", params), ("float32", params32)):
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        out, step_logits = launcher.generate(weights, cfg, prompts,
+                                             LAUNCH_GEN)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pre = prefill(weights, prompts)
+        torch.cuda.synchronize()
+        launches_b = dict(cuda.LAUNCHES)
+        print(f"serve (b) launcher {dtname}: batch {LAUNCH_BATCH}, prompt "
+              f"{LAUNCH_PROMPT}, gen {LAUNCH_GEN}: {steps} decode steps in "
+              f"{dt * 1e3:.3f} ms = {dt * 1e3 / steps:.3f} ms per decode "
+              f"step (one token for each of {LAUNCH_BATCH} sequences), "
+              f"{steps * LAUNCH_BATCH / dt:.1f} tokens/s; launches "
+              f"{launches_b}", flush=True)
+        _require(out.shape == (LAUNCH_BATCH, LAUNCH_GEN)
+                 and bool(((out >= 0) & (out < V)).all()),
+                 "generated tokens")
+        _require(launches_b["flash_attention"] == cfg.n_layers,
+                 "the launcher check's prefill did not run the kernel per "
+                 "layer")
+        dec = step_logits[:, :LAUNCH_PROMPT]
+        _require(bool(torch.isfinite(dec).all()), "decode logits")
+        for what, ref in (("kernel prefill", pre),
+                          ("plain prefill (control)",
+                           prefill_plain(weights, prompts))):
+            d = (dec.float() - ref.float()).abs()
+            beyond = int((d > MODEL_ATOL + MODEL_RTOL * ref.float().abs())
+                         .sum())
+            top1 = (dec.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            print(f"serve (b) {dtname} decode logits at the {LAUNCH_PROMPT} "
+                  f"prompt positions vs the {what}: max |err| "
+                  f"{d.max().item():.4g}, {beyond}/{d.numel()} beyond atol "
+                  f"{MODEL_ATOL} + rtol {MODEL_RTOL}, top-1 agrees "
+                  f"{top1:.4f}", flush=True)
+        if dtname == "float32":
+            dec_err = _close(torch, dec, pre, MODEL_ATOL, MODEL_RTOL,
+                             "f32 teacher-forced decode logits vs the "
+                             "kernel prefill")
+        del step_logits, pre, dec
+    del params32
+    _require(dec_err is not None, "the f32 launcher check did not run")
+    del params
+    keep = {"global": records[1], "local": records[0]}
+    del records
+    torch.cuda.empty_cache()
+    return {"launches": launches["flash_attention"], "layers": keep,
+            "max_abs_err": layer_err}
+
+
+def gather_path(torch, dev, served) -> dict:
+    """The dispatch-gather op ``flash_attention(q_rows=...)`` at a gemma2
+    global layer's shape, counters reset just before and read after."""
+    from repro_torch import cuda
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.kernel import flash_attention_plain
+    q, k, v, kw, _ = served["layers"]["global"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rows = _dead_rows(torch, gen, q.shape[0], q.shape[1], dev)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    out = attn_ops.flash_attention(q, k, v, True, kw["window"],
+                                   kw["softcap"], q_rows=rows)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    _require(launches["flash_attention_gather"] == 1,
+             f"gather op launches {launches}")
+    want = flash_attention_plain(q, k, v, causal=True, window=kw["window"],
+                                 softcap=kw["softcap"], q_rows=rows)
+    err = _close(torch, out, want, ATTN_TOL["bfloat16"],
+                 ATTN_TOL["bfloat16"], "gather op vs plain")
+    _require(not bool(out[rows < 0].any()), "gather op: dead rows not zero")
+    print(f"gather path: flash_attention(q_rows=...) on q "
+          f"{tuple(q.shape)}, {int((rows < 0).sum())} dead rows exact "
+          f"zeros, max |err| {err:.4g} vs plain; launches {launches}",
+          flush=True)
+    return {"launches": launches["flash_attention_gather"], "rows": rows,
+            "max_abs_err": err}
+
+
+def _live_pairs(S: int, window, rows=None) -> int:
+    """(query, key) pairs a causal mask (with ``window``) leaves live,
+    over the rows that attend (``rows`` >= 0 for the gather)."""
+    t = np.arange(S, dtype=np.int64)
+    per_row = t + 1 if window is None else np.minimum(t + 1, window)
+    if rows is not None:
+        live = (rows.cpu().numpy() >= 0)
+        return int((live * per_row[None]).sum())
+    return int(per_row.sum())
+
+
+def _flex(torch, q, k, v, window, cap):
+    """``torch.nn.attention.flex_attention`` computing the same function
+    (the yardstick; the port never calls it): a softcap ``score_mod``
+    and a causal or sliding-window ``mask_mod``, compiled."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        live = kv_idx <= q_idx
+        if window is not None:
+            live = live & (kv_idx > q_idx - window)
+        return live
+
+    S = q.shape[1]
+    block_mask = create_block_mask(mask_mod, None, None, S, S,
+                                   device=q.device)
+    fn = torch.compile(flex_attention)
+
+    def call(q, k, v):
+        return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  score_mod=score_mod, block_mask=block_mask,
+                  enable_gqa=True).transpose(1, 2)
+    return call
+
+
+def _off_alignment(torch, t):
+    """A copy of ``t`` whose storage starts 2 bytes past a 16-byte
+    boundary, which routes bf16 to the kernel's CUDA-core body."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    u = buf[1:].view(t.shape)
+    u.copy_(t)
+    return u
+
+
+def attention_timing(torch, served, gathered, parity_err) -> list[dict]:
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.kernel import flash_attention_plain
+    rows_out = {"flash_attention": [], "flash_attention_gather": []}
+    cases = [("flash_attention", "global layer", "global", None, False),
+             ("flash_attention", "local layer", "local", None, False),
+             ("flash_attention", "global layer, CUDA-core body (inputs "
+              "off 16-byte alignment; the first version's path)", "global",
+              None, True),
+             ("flash_attention_gather", "global layer with q_rows (random "
+              "permutation, 1/8 dead)", "global", gathered["rows"], False)]
+    for name, what, which, rows, unaligned in cases:
+        q, k, v, kw, out = served["layers"][which]
+        win, cap = kw["window"], kw["softcap"]
+        label = (f"{SERVE_ARCH} {what}: q {list(q.shape)} k/v "
+                 f"{list(k.shape)} {str(q.dtype)[6:]}, causal, window {win}, "
+                 f"softcap {cap}")
+        if unaligned:
+            q, k, v = (_off_alignment(torch, t) for t in (q, k, v))
+
+        def kern(q, k, v, rows=rows):
+            return attn_ops.flash_attention(q, k, v, True, win, cap,
+                                            q_rows=rows)
+
+        def plain(q, k, v, rows=rows):
+            return flash_attention_plain(q, k, v, causal=True, window=win,
+                                         softcap=cap, q_rows=rows)
+        ms, reps = time_long_ms(torch, kern, q, k, v)
+        plain_ms, plain_reps = time_long_ms(torch, plain, q, k, v)
+        dev_ms = device_ms(torch, name, kern, q, k, v, reps=LONG_REPS)
+        B, S, H, D = q.shape
+        pairs = _live_pairs(S, win, rows)
+        flops = 4 * D * H * B * pairs
+        nbytes = _nbytes(q, k, v, out) + (0 if rows is None
+                                          else _nbytes(rows))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_TC_OPS_PER_S * 1e3
+        library, library_ms, note = None, None, None
+        if unaligned:
+            got = kern(q, k, v)
+            err = _close(torch, got, plain(q, k, v), ATTN_TOL["bfloat16"],
+                         ATTN_TOL["bfloat16"], f"{label} vs plain")
+            note = (f"max |err| vs plain {err:.4g}; the library call is the "
+                    f"global layer's")
+        elif rows is None:
+            library = ("torch.compile(flex_attention) with a softcap "
+                       "score_mod and a causal/window mask_mod")
+            try:
+                flex = _flex(torch, q, k, v, win, cap)
+                flex_err = (flex(q, k, v).float() - out.float()).abs().max()
+                library_ms, _ = time_long_ms(torch, flex, q, k, v)
+                note = f"flex max |diff| vs kernel {flex_err.item():.4g}"
+            except Exception as e:           # the yardstick, not the port
+                library = None
+                note = (f"none is one call: flex_attention failed on this "
+                        f"card ({type(e).__name__}: {str(e)[:200]})")
+        else:
+            note = ("none is one call: no library call gathers q rows and "
+                    "attends in one")
+        row = {"case": label, "ms": ms, "device_ms": dev_ms, "reps": reps,
+               "plain_ms": plain_ms, "plain_reps": plain_reps,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "operations": flops, "live_pairs": pairs,
+               "library_ms": library_ms, "library_call": library,
+               "library_note": note}
+        print(f"{name:>22} | {label}: {ms:.4f} ms [device "
+              f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms] "
+              f"({reps}; bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}, {flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms ({plain_reps}), library "
+              f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
+              f"[{note}]", flush=True)
+        rows_out[name].append(row)
+    result = []
+    for name, source, tpu, info in (
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/attention/kernel.py:25", served),
+            ("flash_attention_gather",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/attention/kernel.py:66", gathered)):
+        first = rows_out[name][0]
+        result.append({"name": name, "route": "cuda", "source": source,
+                       "replaces": tpu, "launches": info["launches"],
+                       "max_abs_err": max(info["max_abs_err"],
+                                          parity_err[name]),
+                       "ms": first["ms"], "plain_ms": first["plain_ms"],
+                       "bound_ms": first["bound_ms"],
+                       "bound_by": first["bound_by"],
+                       "library_ms": first["library_ms"],
+                       "cases": rows_out[name]})
+    return result
 
 
 if __name__ == "__main__":

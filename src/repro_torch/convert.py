@@ -5,7 +5,9 @@ A schedule crosses as a dict of numpy arrays and ints (see
 package's tuner or serve engine, say — runs here unchanged and keeps
 its fingerprint.  Tensors cross as numpy arrays; a bfloat16 array (an
 extension dtype numpy itself lacks) is read through its raw 16-bit
-pattern, so no bfloat16 package is needed here.
+pattern, so no bfloat16 package is needed here.  Model weights cross
+the same way: ``params_from_jax`` maps the reference's ``init_params``
+tree onto the port's per-layer parameter names.
 """
 from __future__ import annotations
 
@@ -92,3 +94,51 @@ def scale_from_numpy(a, *, device=None) -> torch.Tensor:
     if t.ndim != 1:
         raise ValueError(f"rmsnorm scale must be 1-D, got {tuple(t.shape)}")
     return t
+
+
+def _flatten(tree: dict, prefix: str, out: dict, index=None) -> None:
+    for name, leaf in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(leaf, dict):
+            _flatten(leaf, key + ".", out, index)
+        else:
+            a = np.asarray(leaf)
+            out[key] = tensor_from_numpy(a if index is None else a[index])
+
+
+_TOP = ("embed", "final_norm", "lm_head", "prefix", "periods", "suffix")
+
+
+def params_from_jax(tree: dict) -> dict:
+    """The port's model state (names as in ``Model.state_dict()``) for
+    the reference's ``init_params`` tree with numpy leaves.
+
+    ``prefix[i]`` becomes ``layers.{i}``; the stacked ``periods/b{j}``
+    arrays are cut along their leading ``n_periods`` axis into layers
+    ``len(prefix) + p * len(period) + j``; ``suffix`` follows.  Values
+    and dtypes are kept (bfloat16 bit for bit)."""
+    unknown = sorted(set(tree) - set(_TOP))
+    if unknown:
+        raise ValueError(f"params_from_jax: no port for {unknown}")
+    state: dict = {}
+    for name in ("embed", "final_norm", "lm_head"):
+        if name in tree:
+            state[name] = tensor_from_numpy(np.asarray(tree[name]))
+    layer = 0
+    for block in tree.get("prefix", []):
+        _flatten(block, f"layers.{layer}.", state)
+        layer += 1
+    periods = tree.get("periods", {})
+    names = sorted(periods, key=lambda b: int(b[1:]))
+    if names:
+        first = periods[names[0]]
+        while isinstance(first, dict):
+            first = next(iter(first.values()))
+        for p in range(np.asarray(first).shape[0]):
+            for name in names:
+                _flatten(periods[name], f"layers.{layer}.", state, index=p)
+                layer += 1
+    for block in tree.get("suffix", []):
+        _flatten(block, f"layers.{layer}.", state)
+        layer += 1
+    return state

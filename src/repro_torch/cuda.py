@@ -28,7 +28,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"schedule_exec": 0, "rmsnorm": 0, "rmsnorm_reduce": 0}
+LAUNCHES = {"schedule_exec": 0, "rmsnorm": 0, "rmsnorm_reduce": 0,
+            "flash_attention": 0, "flash_attention_gather": 0}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None     # wall time of this process's build
@@ -46,6 +47,13 @@ _SIGNATURES = {
                              _i, _vp],
     # dtype, scale dtype, x, scale, out, R, d, eps, gemma, threads, stream
     "repro_rmsnorm": [_i, _i, _vp, _vp, _vp, _i64, _i, _f, _i, _i, _vp],
+    # dtype, q, k, v, out, q/k/v strides over (b, s, h), B, Sq, Sk, H, K,
+    # D, scale, cap, causal, has_window, window, stream
+    "repro_flash_attention": [_i] + [_vp] * 4 + [_i64] * 9 + [_i] * 6
+                             + [_f, _f, _i, _i, _i, _vp],
+    # the same with q_rows after v
+    "repro_flash_attention_gather": [_i] + [_vp] * 5 + [_i64] * 9
+                                    + [_i] * 6 + [_f, _f, _i, _i, _i, _vp],
 }
 
 

@@ -1,0 +1,105 @@
+"""Flash-attention kernels (``csrc/flash_attention.cu``) and their plain
+version.
+
+``flash_attention_bshd`` takes the model's ``[B, S, H, D]`` layout
+directly (the kernel reads q, k and v through their strides, so there
+is no transpose to ``[B*H, S, D]``): online softmax over kv tiles with
+an f32 accumulator, GQA (kv head = q head // group), causal and window
+masks and a tanh logit softcap.  With ``q_rows`` it runs the
+dispatch-gather prologue: output row t attends with token-order q row
+``q_rows[b, t]``, and an index outside [0, Sq) gives an exact zero row.
+bf16 inputs with a head dim that is a multiple of 8 run on the tensor
+cores (the attention weights rounded to bf16 for the P.V product); f32,
+and other bf16 shapes, on the CUDA cores in f32.
+
+The wrapper takes the plain PyTorch version only for a CPU tensor; on a
+CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import cuda
+from repro_torch.kernels.attention.ref import (attention_ref,
+                                               gathered_attention_ref)
+
+MAX_HEAD_DIM = 256        # the f32 tiles fill shared memory here
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None,
+                          softcap=None, scale=None, q_rows=None):
+    """Plain version of both kernels (the reference math)."""
+    if q_rows is None:
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale)
+    return gathered_attention_ref(q, k, v, q_rows, causal=causal,
+                                  window=window, softcap=softcap,
+                                  scale=scale)
+
+
+def _check(q, k, v, q_rows, softcap) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash_attention: q, k, v must be [B, S, H, D]")
+    B, Sq, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if k.shape[2] < 1 or H % k.shape[2]:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {k.shape[2]} kv heads")
+    if k.shape[1] < 1:
+        raise ValueError("flash_attention: no keys")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("flash_attention: q, k, v dtypes differ")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap {softcap} <= 0")
+    if q_rows is not None and tuple(q_rows.shape) != (B, Sq):
+        raise ValueError(f"flash_attention: q_rows {tuple(q_rows.shape)} "
+                         f"!= {(B, Sq)}")
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         softcap: float | None = None,
+                         scale: float | None = None,
+                         q_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """q [B,Sq,H,D], k/v [B,Sk,K,D] -> [B,Sq,H,D] in q's dtype; with
+    ``q_rows`` [B, Sq] the gather prologue."""
+    _check(q, k, v, q_rows, softcap)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     q_rows=q_rows)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k, v on different devices")
+    code = cuda.dtype_code(q.dtype)
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {D} > {MAX_HEAD_DIM}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    scale = float(D ** -0.5 if scale is None else scale)
+    cap = 0.0 if softcap is None else float(softcap)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    tail = (B, Sq, Sk, H, K, D, scale, cap, int(causal),
+            int(window is not None), int(window or 0),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        lib = cuda.library()
+        if q_rows is None:
+            err = lib.repro_flash_attention(code, *args, out.data_ptr(),
+                                            *strides, *tail)
+            name = "flash_attention"
+        else:
+            rows = q_rows.to(device=q.device, dtype=torch.int32).contiguous()
+            err = lib.repro_flash_attention_gather(
+                code, *args, rows.data_ptr(), out.data_ptr(), *strides,
+                *tail)
+            name = "flash_attention_gather"
+    cuda.check(err, name)
+    cuda.LAUNCHES[name] += 1
+    return out

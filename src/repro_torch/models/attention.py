@@ -1,0 +1,179 @@
+"""Multi-head attention: GQA/MQA, sliding window, logit softcap, qk_norm,
+KV-cache decode.
+
+The prefill core routes through ``repro_torch.kernels.attention.ops``
+(the hand-written flash kernel) when ``use_kernel``; everything around
+it (projections, rope, cache, the decode step's attention) is plain
+PyTorch.  Cross-attention and M-RoPE wait for whisper and qwen2-vl
+(ROADMAP.md, Queue 1 item 10).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.models.common import (apply_rope, attn_mask, dense_init_,
+                                       rmsnorm, softcap)
+from repro_torch.models.config import AttnConfig
+
+NEG_INF = -1e30
+
+
+def _check_supported(cfg: AttnConfig) -> None:
+    if cfg.cross:
+        raise NotImplementedError(
+            "cross-attention is not yet ported (whisper; ROADMAP.md "
+            "Queue 1 item 10)")
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            "M-RoPE is not yet ported (qwen2-vl; ROADMAP.md Queue 1 "
+            "item 10)")
+
+
+class Attention(nn.Module):
+    """Parameters ``wq`` [d, H*D], ``wk`` / ``wv`` [d, K*D], ``wo``
+    [H*D, d] and, with ``qk_norm``, ``q_norm`` / ``k_norm`` [D]."""
+
+    def __init__(self, cfg: AttnConfig, d_model: int, *, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        _check_supported(cfg)
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        kw = dict(device=device, dtype=dtype)
+        self.wq = nn.Parameter(torch.empty(d_model, H * D, **kw))
+        self.wk = nn.Parameter(torch.empty(d_model, K * D, **kw))
+        self.wv = nn.Parameter(torch.empty(d_model, K * D, **kw))
+        self.wo = nn.Parameter(torch.empty(H * D, d_model, **kw))
+        if cfg.qk_norm:
+            self.q_norm = nn.Parameter(torch.ones(D, **kw))
+            self.k_norm = nn.Parameter(torch.ones(D, **kw))
+
+
+def init(cfg: AttnConfig, d_model: int, *, generator: torch.Generator,
+         device=None) -> Attention:
+    p = Attention(cfg, d_model, device=device)
+    for w in (p.wq, p.wk, p.wv, p.wo):
+        dense_init_(w, generator)
+    return p
+
+
+def _project_qkv(p: Attention, cfg: AttnConfig, x, *, positions, eps=1e-6):
+    """Returns q [B,S,H,D], k,v [B,S,K,D] with rope + qk_norm applied."""
+    B, S, _ = x.shape
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(B, S, H, D)
+    k = (x @ p.wk).reshape(B, S, K, D)
+    v = (x @ p.wv).reshape(B, S, K, D)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, eps)
+        k = rmsnorm(k, p.k_norm, eps)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def core_attention(q, k, v, mask, *, cap=None, scale=None):
+    """Plain core; [B,S,H,D] layout, ``mask`` [B, Sq, Sk] (True =
+    attend).  The weights are rounded to v's dtype before the weighted
+    sum, as in the reference."""
+    H, K = q.shape[2], k.shape[2]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if H != K:
+        k = k.repeat_interleave(H // K, dim=2)
+        v = v.repeat_interleave(H // K, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if cap is not None:
+        logits = softcap(logits, cap)
+    logits = torch.where(mask[:, None] if mask.ndim == 3 else mask,
+                         logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+CHUNK_THRESHOLD = 8192     # beyond this, q is processed in chunks
+CHUNK_Q = 2048
+
+
+def _chunked_core(q, k, v, mpos, *, causal, window, cap, scale=None,
+                  chunk=CHUNK_Q):
+    """Q-chunked plain attention: full [chunk, Sk] score rows per step,
+    so peak memory is O(B*H*chunk*Sk) instead of O(B*H*S^2).  Rows of
+    the padded last chunk (position -1) are masked and dropped."""
+    B, S, H, D = q.shape
+    nq = -(-S // chunk)
+    pad = nq * chunk - S
+    mpos = torch.broadcast_to(mpos, (B, mpos.shape[-1]))
+    if pad:
+        q = torch.cat([q, q.new_zeros((B, pad) + q.shape[2:])], dim=1)
+        mpos = torch.cat([mpos, mpos.new_full((B, pad), -1)], dim=-1)
+    kpos = torch.arange(k.shape[1], device=q.device).expand(B, k.shape[1])
+    outs = []
+    for c in range(nq):
+        qc = q[:, c * chunk:(c + 1) * chunk]
+        qpc = mpos[:, c * chunk:(c + 1) * chunk]
+        m = attn_mask(qpc, kpos, causal=causal, window=window)
+        m &= (qpc >= 0)[..., None]
+        outs.append(core_attention(qc, k, v, m, cap=cap, scale=scale))
+    return torch.cat(outs, dim=1)[:, :S]
+
+
+def forward(p: Attention, cfg: AttnConfig, x, *, positions, window=None,
+            eps=1e-6, use_kernel=False):
+    """Full-sequence attention (prefill)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions=positions, eps=eps)
+    win = window if window is not None else cfg.window
+    if use_kernel and cfg.causal:
+        out = attn_ops.flash_attention(q, k, v, causal=True, window=win,
+                                       softcap=cfg.softcap)
+    elif S > CHUNK_THRESHOLD:
+        out = _chunked_core(q, k, v, positions, causal=cfg.causal,
+                            window=win, cap=cfg.softcap)
+    else:
+        mask = attn_mask(positions, positions, causal=cfg.causal,
+                         window=win)
+        mask = torch.broadcast_to(mask, (B,) + mask.shape[-2:])
+        out = core_attention(q, k, v, mask, cap=cfg.softcap)
+    return out.reshape(B, S, -1) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# decode with KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: AttnConfig, batch: int, max_len: int, *, device=None,
+               dtype=torch.bfloat16) -> dict:
+    K, D = cfg.n_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((batch, max_len, K, D), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, max_len, K, D), dtype=dtype,
+                             device=device),
+            "len": 0}
+
+
+def decode_step(p: Attention, cfg: AttnConfig, x, cache: dict, *,
+                window=None, eps=1e-6):
+    """One-token decode: x [B, 1, d]; returns (y [B, 1, d], cache').
+
+    The new k/v row is written into the cache in place (the reference
+    returns a new cache array); ``cache["len"]`` is a host int."""
+    B = x.shape[0]
+    t = cache["len"]
+    positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, cfg, x, positions=positions, eps=eps)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, t] = k[:, 0]
+    cv[:, t] = v[:, 0]
+    S = ck.shape[1]
+    kpos = torch.arange(S, device=x.device)[None, :]
+    win = window if window is not None else cfg.window
+    mask = kpos <= t
+    if win is not None:
+        mask &= kpos > t - win
+    mask = torch.broadcast_to(mask[:, None, :], (B, 1, S))
+    out = core_attention(q, ck, cv, mask, cap=cfg.softcap)
+    y = out.reshape(B, 1, -1) @ p.wo
+    return y, {"k": ck, "v": cv, "len": t + 1}

@@ -1,0 +1,126 @@
+"""Residual block assembly: (norm -> mixer -> [norm] -> residual) +
+(norm -> ff -> [norm] -> residual).
+
+The port runs the ``attn`` mixer and the ``mlp`` feed-forward; the other
+mixers and feed-forwards raise ``NotImplementedError`` until their
+modules are ported (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention, mlp
+from repro_torch.models.common import rmsnorm
+from repro_torch.models.config import BlockSpec, ModelConfig
+
+_NOT_PORTED = {
+    "mla": "the MLA mixer (deepseek-v3; ROADMAP.md Queue 1 item 10)",
+    "rwkv": "the RWKV time mix (rwkv6-3b; ROADMAP.md Queue 1 item 10, "
+            "kernel Queue 2 item 7)",
+    "mamba": "the mamba mixer (jamba; ROADMAP.md Queue 1 item 10, kernel "
+             "Queue 2 item 6)",
+    "moe": "the MoE feed-forward (ROADMAP.md Queue 1 item 10)",
+    "cmix": "the RWKV channel mix (rwkv6-3b; ROADMAP.md Queue 1 item 10)",
+    "cross": "cross-attention (whisper; ROADMAP.md Queue 1 item 10)",
+}
+
+
+def check_supported(spec: BlockSpec) -> None:
+    for part in (spec.mixer, spec.ff, "cross" if spec.cross else None):
+        if part in _NOT_PORTED:
+            raise NotImplementedError(f"{_NOT_PORTED[part]} is not yet "
+                                      f"ported to repro_torch")
+
+
+def _norm_param(cfg: ModelConfig, d: int, device) -> nn.Parameter:
+    # gemma parameterizes rmsnorm as (1 + w) with w ~ 0; others as w ~ 1
+    fill = torch.zeros if cfg.gemma_norm else torch.ones
+    return nn.Parameter(fill(d, dtype=torch.bfloat16, device=device))
+
+
+class Block(nn.Module):
+    """One layer: ``norm_mixer``, ``attn``, ``norm_mixer_post`` (with
+    post-block norms), ``norm_ff``, ``mlp``, ``norm_ff_post``.  With a
+    ``generator`` the weights take the reference's init distributions;
+    without one they are left uninitialised."""
+
+    def __init__(self, spec: BlockSpec, cfg: ModelConfig, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        check_supported(spec)
+        d = cfg.d_model
+        self.norm_mixer = _norm_param(cfg, d, device)
+        if spec.mixer == "attn":
+            self.attn = (attention.Attention(cfg.attn, d, device=device)
+                         if generator is None else
+                         attention.init(cfg.attn, d, generator=generator,
+                                        device=device))
+        if cfg.post_block_norm:
+            self.norm_mixer_post = _norm_param(cfg, d, device)
+        if spec.ff != "none":
+            self.norm_ff = _norm_param(cfg, d, device)
+            if cfg.post_block_norm:
+                self.norm_ff_post = _norm_param(cfg, d, device)
+        if spec.ff == "mlp":
+            self.mlp = (mlp.MLP(d, cfg.d_ff, cfg.gated_mlp, device=device)
+                        if generator is None else
+                        mlp.init(d, cfg.d_ff, cfg.gated_mlp,
+                                 generator=generator, device=device))
+
+
+def _norm(cfg: ModelConfig, x, w):
+    return rmsnorm(x, w, cfg.norm_eps, gemma_style=cfg.gemma_norm)
+
+
+def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x):
+    if spec.ff == "none":
+        return x
+    h = _norm(cfg, x, p.norm_ff)
+    h = mlp.forward(p.mlp, h, cfg.mlp_act)
+    if cfg.post_block_norm:
+        h = _norm(cfg, h, p.norm_ff_post)
+    return x + h
+
+
+def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
+            use_kernel=False):
+    """Full-sequence block; x [B, S, d]."""
+    h = _norm(cfg, x, p.norm_mixer)
+    if spec.mixer == "attn":
+        h = attention.forward(p.attn, cfg.attn, h, positions=positions,
+                              window=spec.window, eps=cfg.norm_eps,
+                              use_kernel=use_kernel)
+    else:
+        h = torch.zeros_like(h)
+    if cfg.post_block_norm:
+        h = _norm(cfg, h, p.norm_mixer_post)
+    return _ff(p, spec, cfg, x + h)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
+               *, device=None, dtype=torch.bfloat16) -> dict:
+    check_supported(spec)
+    if spec.mixer == "attn":
+        return {"attn": attention.init_cache(cfg.attn, batch, max_len,
+                                             device=device, dtype=dtype)}
+    return {}
+
+
+def decode(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache: dict):
+    """One-token decode; x [B, 1, d]."""
+    h = _norm(cfg, x, p.norm_mixer)
+    if spec.mixer == "attn":
+        h, cache["attn"] = attention.decode_step(
+            p.attn, cfg.attn, h, cache["attn"], window=spec.window,
+            eps=cfg.norm_eps)
+    else:
+        h = torch.zeros_like(h)
+    if cfg.post_block_norm:
+        h = _norm(cfg, h, p.norm_mixer_post)
+    return _ff(p, spec, cfg, x + h), cache

@@ -1,0 +1,94 @@
+"""Shared model primitives: norms, softcap, rotary embeddings, masks,
+init.
+
+The numerics follow the reference package: norms reduce in f32 and cast
+back to the input dtype once, rotary frequencies are computed in float64
+by numpy and then rounded to f32.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+            gemma_style: bool = False) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, -1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    w = (1.0 + scale.float()) if gemma_style else scale.float()
+    return (y * w).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_freqs_on(head_dim: int, theta: float,
+                   device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` rounded to f32, copied to ``device`` once (a copy
+    from host memory per call would wait for the device each layer)."""
+    return torch.from_numpy(rope_freqs(head_dim, theta).astype(np.float32)
+                            ).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: broadcastable to [..., S]."""
+    d = x.shape[-1]
+    freqs = _rope_freqs_on(d, float(theta), x.device)           # [D/2]
+    ang = positions[..., None].float() * freqs                  # [..., S, D/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# masks
+# ---------------------------------------------------------------------------
+
+
+def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal=True,
+              window=None) -> torch.Tensor:
+    """Boolean [..., Sq, Sk] mask; True = attend.  ``window`` counts how
+    far back attention reaches (gemma2 local layers)."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    m = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k <= q
+    if window is not None:
+        m &= k > q - window
+    return m
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                scale: float | None = None) -> torch.Tensor:
+    """Fill ``w`` in place with normal * fan_in^-1/2 (or ``scale``),
+    drawn in f32 from ``generator`` on ``w``'s device and rounded to
+    ``w``'s dtype (bf16 in the models)."""
+    fan_in = w.shape[0] if w.ndim >= 2 else 1
+    s = scale if scale is not None else fan_in ** -0.5
+    with torch.no_grad():
+        w.copy_(torch.randn(w.shape, generator=generator, device=w.device,
+                            dtype=torch.float32) * s)
+    return w

@@ -1,0 +1,68 @@
+"""Serving steps: batched prefill + KV-cache decode.
+
+One device, no mesh and no jit: the steps are plain functions over the
+port's ``Model``.  Decode samples greedily (argmax), like the
+reference's step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.models import model as M
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeOptions:
+    use_kernel: bool = False
+    # expert-parallel dispatch and chaos resilience are not yet ported
+    # (ROADMAP.md); anything but None raises
+    ep_options: object = None
+    resilience: object = None
+
+
+def _check(opts: ServeOptions) -> None:
+    if opts.ep_options is not None:
+        raise NotImplementedError(
+            "ep_options: the expert-parallel dispatch is not yet ported "
+            "(ROADMAP.md Queue 1 item 10)")
+    if opts.resilience is not None:
+        raise NotImplementedError(
+            "resilience: the recovery ladder is not yet ported (ROADMAP.md "
+            "Queue 1 item 8)")
+
+
+def init_serve_cache(cfg, batch: int, max_len: int, *, device=None,
+                     dtype=torch.bfloat16):
+    return M.init_cache(cfg, batch, max_len, device=device, dtype=dtype)
+
+
+def make_prefill_step(cfg, opts: ServeOptions) -> Callable:
+    """(params, tokens [B, S]) -> logits [B, S, V]: the full-sequence
+    forward used for prompt processing; with ``opts.use_kernel`` each
+    attention layer runs the flash kernel."""
+    _check(opts)
+
+    @torch.no_grad()
+    def prefill(params, tokens):
+        return M.forward(params, cfg, tokens, use_kernel=opts.use_kernel)
+
+    return prefill
+
+
+def make_decode_step(cfg, opts: ServeOptions) -> Callable:
+    """(params, cache, tokens [B, 1]) -> (next_tokens [B, 1], cache',
+    logits [B, V]).  The step's logits come back too, so a caller can
+    check them without a second forward."""
+    _check(opts)
+
+    @torch.no_grad()
+    def decode(params, cache, tokens):
+        logits, cache = M.decode_step(params, cfg, cache, tokens)
+        last = logits[:, -1]
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)
+        return nxt[:, None], cache, last
+
+    return decode

@@ -11,7 +11,11 @@ Tolerances: the transport kernel is bitwise (f32 and bf16) against
 ``schedule_exec_plain`` and, in f32, against the numpy oracle
 ``run_reference``; the rmsnorm kernels are within 1e-5 (f32) or one
 bf16 ulp of their plain versions (the f32 mean is reduced in another
-order).
+order); the flash-attention kernels are within the reference's kernel
+tolerances of their plain version, ``3e-5`` in f32 and ``2e-2`` in bf16
+(another tile order of the online softmax; in bf16 the tensor-core body
+also rounds the attention weights to bf16), and the gather kernel's
+dead rows are exact zeros.
 """
 import numpy as np
 import pytest
@@ -26,6 +30,9 @@ from repro_torch.core.kernel_lowering import (get_kernel_exec,
 from repro_torch.core.schedule import CommRound, CommSchedule, NotApplicable
 from repro_torch.core.topology import Topology, flat_topology, torus_topology
 from repro_torch.core.transport import SimTransport
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention.kernel import (flash_attention_bshd,
+                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_2d, rmsnorm_plain,
                                                 rmsnorm_reduce_2d,
                                                 rmsnorm_reduce_plain)
@@ -138,3 +145,85 @@ def test_rmsnorm_kernels_match_plain_versions(cuda_device, dtype, gemma):
             ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs()
                                                  .clamp_min(1e-30))) - 7)
             assert bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+ATTN_VARIANTS = [dict(causal=True), dict(causal=True, window=48),
+                 dict(causal=True, softcap=50.0),
+                 dict(causal=True, window=48, softcap=30.0),
+                 dict(causal=False), dict(causal=False, window=40)]
+ATTN_TOL = {torch.float32: dict(atol=3e-5, rtol=3e-5),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _attn_inputs(rng, device, dtype, B, Sq, Sk, H, K, D):
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(device, dtype)
+            for shape in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H,K", [(64, 2, 2), (128, 8, 4), (256, 8, 1),
+                                   (20, 6, 2)])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, D, H, K):
+    """Head dims 64/128/256 (and 20: bf16 on the CUDA-core body), GQA
+    groups 1/2/8/3, every mask/softcap variant; 160 rows leave a ragged
+    tile."""
+    rng = np.random.default_rng(D + H)
+    q, k, v = _attn_inputs(rng, cuda_device, dtype, 2, 160, 160, H, K, D)
+    for kw in ATTN_VARIANTS:
+        n0 = cuda.LAUNCHES["flash_attention"]
+        got = flash_attention_bshd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES["flash_attention"] == n0 + 1
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL[dtype],
+                                   msg=lambda m: f"{kw}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gather_kernel_matches_plain(cuda_device, dtype):
+    B, S, H, K, D = 2, 256, 8, 4, 128
+    rng = np.random.default_rng(11)
+    q, k, v = _attn_inputs(rng, cuda_device, dtype, B, S, S, H, K, D)
+    rows = np.stack([rng.permutation(S) for _ in range(B)]).astype(np.int32)
+    rows[:, ::8] = -1
+    rows_t = torch.from_numpy(rows).to(cuda_device)
+    for kw in ATTN_VARIANTS:
+        n0 = cuda.LAUNCHES["flash_attention_gather"]
+        got = flash_attention_bshd(q, k, v, q_rows=rows_t, **kw)
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES["flash_attention_gather"] == n0 + 1
+        want = flash_attention_plain(q, k, v, q_rows=rows_t, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL[dtype])
+        assert not got[torch.from_numpy(rows < 0)].any()
+
+
+def test_flash_attention_kernel_fully_masked_rows(cuda_device):
+    """Rows with no live key (Sq >= Sk + window) weigh every key equally,
+    as the reference does."""
+    rng = np.random.default_rng(12)
+    q, k, v = _attn_inputs(rng, cuda_device, torch.float32, 1, 200, 40, 2,
+                           1, 64)
+    for causal in (True, False):
+        got = flash_attention_bshd(q, k, v, causal=causal, window=8)
+        want = flash_attention_plain(q, k, v, causal=causal, window=8)
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+def test_flash_attention_op_grad_and_errors(cuda_device):
+    rng = np.random.default_rng(13)
+    q, k, v = _attn_inputs(rng, cuda_device, torch.float32, 1, 128, 128, 4,
+                           2, 64)
+    qg = q.clone().requires_grad_()
+    attn_ops.flash_attention(qg, k, v, True, 32, 50.0).sum().backward()
+    qr = q.clone().requires_grad_()
+    attn_ops.attention_ref(qr, k, v, causal=True, window=32,
+                           softcap=50.0).sum().backward()
+    torch.testing.assert_close(qg.grad, qr.grad, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros(1, 64, 1, 320, device=cuda_device)
+        flash_attention_bshd(z, z, z)
+    with pytest.raises(TypeError, match="dtype"):
+        z = torch.zeros(1, 64, 1, 64, device=cuda_device,
+                        dtype=torch.float16)
+        flash_attention_bshd(z, z, z)
