@@ -38,7 +38,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              logits must match the kernel prefill's at the reference's
              model tolerance.  Then the dispatch-gather op
              ``flash_attention(q_rows=...)`` at a gemma2 layer's shape;
-5. timing  — per case, the kernel, its plain version and a library
+5. rwkv    — the wkv6 kernel against its plain version on random floats
+             (the reference's sweep shapes, head size 64 at 40 heads, a T
+             that is no multiple of 64; f32, bf16 and the model's mix of
+             bf16 r/k/v with f32 w), then rwkv6-3b at full width and
+             depth (32 layers, random bf16 weights from a seeded
+             generator on the card): (a) counters reset, the kernel
+             prefill of one 8192-token prompt, counters read (32 wkv6
+             launches), each layer's kernel output checked against
+             ``wkv6_plain`` on the same inputs and the logits reported
+             against the plain prefill; (b) the launcher's loop at batch
+             4, prompt 32, gen 16 on the O(1) decode state, in bf16
+             (reported) and with the weights widened to f32 (held to the
+             model tolerance against the kernel prefill);
+6. timing  — per case, the kernel, its plain version and a library
              call: CUDA events around 20 calls enqueued back to back,
              divided by 20, median of 5 such batches (after warm-up;
              fewer for calls over 100 ms, stated in the line); the
@@ -106,11 +119,14 @@ def main() -> int:
 
     parity(torch, dev)
     attn_err = attention_parity(torch, dev)
+    wkv_err = wkv6_parity(torch, dev)
     cases = main_path(torch, dev)
     served = serve_path(torch, dev)
     gathered = gather_path(torch, dev, served)
+    rwkv_served = rwkv_serve_path(torch, dev)
     kernels = timing(torch, cases)
     kernels += attention_timing(torch, served, gathered, attn_err)
+    kernels += wkv6_timing(torch, rwkv_served, wkv_err)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -387,7 +403,8 @@ KERNEL_SYMBOLS = {"schedule_exec": "schedule_exec_kernel",
                   # either body: flash_attention_mma_kernel (bf16
                   # tensor cores) or flash_attention_kernel (CUDA cores)
                   "flash_attention": "flash_attention_",
-                  "flash_attention_gather": "flash_attention_"}
+                  "flash_attention_gather": "flash_attention_",
+                  "wkv6": "wkv6_kernel"}
 
 
 def device_ms(torch, kernel: str, fn, *args, reps=REPS) -> float | None:
@@ -402,12 +419,18 @@ def device_ms(torch, kernel: str, fn, *args, reps=REPS) -> float | None:
             fn(*args)
         torch.cuda.synchronize()
     us = launches = 0
-    for e in prof.key_averages():
+    rows = prof.key_averages()
+    for e in rows:
         if KERNEL_SYMBOLS[kernel] in e.key:
             us += (getattr(e, "device_time_total", None)
                    or getattr(e, "cuda_time_total", 0))
             launches += e.count
-    return us / launches / 1e3 if launches and us else None
+    if launches and us:
+        return us / launches / 1e3
+    print(f"device_ms({kernel}): the trace holds no device time for "
+          f"{KERNEL_SYMBOLS[kernel]!r}; its {len(rows)} keys: "
+          f"{[(e.key[:60], e.count) for e in rows][:8]}", flush=True)
+    return None
 
 
 def _nbytes(*ts) -> int:
@@ -922,6 +945,289 @@ def attention_timing(torch, served, gathered, parity_err) -> list[dict]:
                        "library_ms": first["library_ms"],
                        "cases": rows_out[name]})
     return result
+
+
+
+# ---------------------------------------------------------------------------
+# wkv6: parity, rwkv6-3b served at full width, timing
+# ---------------------------------------------------------------------------
+
+# the reference's kernel tolerances (tests/test_kernels.py:19-21)
+WKV_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+WKV_SHAPES = [(1, 16, 1, 8), (2, 64, 3, 16), (1, 128, 2, 32),
+              (2, 48, 4, 8),                   # the reference's sweep
+              (1, 256, 40, 64),                # rwkv6-3b's heads
+              (2, 200, 40, 64),                # T no multiple of 64
+              (1, 70, 4, 128)]
+WKV_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
+              ("bfloat16", "float32")]         # last: the model's mix
+RWKV_ARCH = "rwkv6-3b"
+RWKV_GROUP = 8                   # layers per plain-version call
+
+
+def _wkv_inputs(torch, gen, dev, B, T, H, N, rkv, wdt):
+    """r, k, v ~ normal in ``rkv``; w = exp(-exp(normal)) in ``wdt``, as
+    the reference's sweep draws it; u ~ normal, f32."""
+    r, k, v = (torch.randn((B, T, H, N), generator=gen, device=dev
+                           ).to(getattr(torch, rkv)) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, T, H, N), generator=gen,
+                                         device=dev))).to(getattr(torch, wdt))
+    u = torch.randn((H, N), generator=gen, device=dev)
+    return r, k, v, w, u
+
+
+def wkv6_parity(torch, dev) -> float:
+    """The kernel against its plain version; returns the max |err|."""
+    from repro_torch import cuda
+    from repro_torch.kernels.wkv6.kernel import wkv6_bthn, wkv6_plain
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    checked, worst = 0, {}
+    for B, T, H, N in WKV_SHAPES:
+        for rkv, wdt in WKV_DTYPES:
+            args = _wkv_inputs(torch, gen, dev, B, T, H, N, rkv, wdt)
+            n0 = cuda.LAUNCHES["wkv6"]
+            got = wkv6_bthn(*args)
+            torch.cuda.synchronize()
+            _require(cuda.LAUNCHES["wkv6"] == n0 + 1,
+                     "wkv6: not one launch per call")
+            tol = WKV_TOL["float32" if rkv == wdt == "float32"
+                          else "bfloat16"]
+            key = f"r/k/v {rkv}, w {wdt}"
+            err = _close(torch, got, wkv6_plain(*args), tol, tol,
+                         f"wkv6 B={B} T={T} H={H} N={N} {key}")
+            worst[key] = max(worst.get(key, 0.0), err)
+            checked += 1
+    print(f"wkv6 parity: {checked} kernel calls (the reference's sweep "
+          f"shapes, N=64 at H=40, T=200 and T=70; f32, bf16 and bf16 r/k/v "
+          f"with f32 w) within atol=rtol 2e-5 (all f32) / 2e-2 (bf16 "
+          f"inputs); max |err| {worst}; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return max(worst.values())
+
+
+def rwkv_serve_path(torch, dev) -> dict:
+    """rwkv6-3b at full width: (a) the kernel prefill of one 8192-token
+    prompt, (b) the launcher's loop on the O(1) decode state, each with
+    the counters reset just before and read just after."""
+    from repro_torch import configs, cuda
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6.kernel import wkv6_plain
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeOptions, make_prefill_step
+
+    cfg = configs.get_config(RWKV_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"rwkv: device memory {mem0 / 2**30:.2f} GiB allocated before "
+          f"the weights", flush=True)
+    print(f"rwkv: {RWKV_ARCH} at full width, {cfg.n_layers} layers, "
+          f"{cfg.param_count():,} parameters (bf16 projections, f32 decay/"
+          f"mix/bonus/norm vectors; random from seed 0) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    V = cfg.vocab_size
+    prefill = make_prefill_step(cfg, ServeOptions(use_kernel=True))
+    prefill_plain = make_prefill_step(cfg, ServeOptions(use_kernel=False))
+    gen.manual_seed(1)
+    prompt = torch.randint(2, V, (1, PREFILL_TOKENS), generator=gen,
+                           device=dev)
+    prefill(params, prompt[:, :256])             # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # (a) the kernel prefill, recording each layer's wkv6 inputs
+    records = []
+    real_op = wkv_ops.wkv6
+
+    def recording(r, k, v, w, u, *args, **kw):
+        out = real_op(r, k, v, w, u, *args, **kw)
+        records.append((r, k, v, w, u, out))
+        return out
+
+    wkv_ops.wkv6 = recording
+    try:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill(params, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+    finally:
+        wkv_ops.wkv6 = real_op
+    print(f"rwkv (a) prefill: B=1 S={PREFILL_TOKENS} in "
+          f"{prefill_s * 1e3:.3f} ms = {PREFILL_TOKENS / prefill_s:.1f} "
+          f"tokens/s (host clock around the "
+          f"step, synchronized), launches {launches}", flush=True)
+    _require(launches["wkv6"] == cfg.n_layers,
+             f"prefill launched wkv6 {launches['wkv6']} times, not "
+             f"{cfg.n_layers}")
+    _require(len(records) == cfg.n_layers, "not one wkv6 per layer")
+    _require(logits.shape == (1, PREFILL_TOKENS, V)
+             and bool(torch.isfinite(logits).all()), "prefill logits")
+    r0, k0, v0, w0, u0, _ = records[0]
+    _require(r0.dtype == torch.bfloat16 and w0.dtype == torch.float32
+             and u0.dtype == torch.float32,
+             "the model does not call wkv6 with bf16 r/k/v, f32 w and u")
+
+    # every layer against the plain version on its own inputs: the heads
+    # of RWKV_GROUP layers side by side (heads are independent) per call
+    print(f"rwkv (a) device memory: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated after the prefill ({len(records)} layers' wkv6 "
+          f"inputs and outputs recorded)", flush=True)
+    H = r0.shape[2]
+    layer_err = 0.0
+    for g0 in range(0, len(records), RWKV_GROUP):
+        group = records[g0:g0 + RWKV_GROUP]
+        plain = wkv6_plain(*(torch.cat([rec[i] for rec in group], dim=2)
+                             for i in range(4)),
+                           torch.cat([rec[4] for rec in group], 0))
+        for i, rec in enumerate(group):
+            layer_err = max(layer_err, _close(
+                torch, rec[5], plain[:, :, i * H:(i + 1) * H],
+                WKV_TOL["bfloat16"], WKV_TOL["bfloat16"],
+                f"layer {g0 + i} wkv6 kernel vs wkv6_plain"))
+        del plain
+    print(f"rwkv (a) layers: all {len(records)} wkv6 outputs within 2e-2 "
+          f"of wkv6_plain on the same inputs, max |err| {layer_err:.4g}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    plain_logits = prefill_plain(params, prompt)
+    torch.cuda.synchronize()
+    plain_dt = time.perf_counter() - t0
+    max_err, per_block = 0.0, []
+    for c in range(0, PREFILL_TOKENS, 1024):
+        a, b = logits[0, c:c + 1024], plain_logits[0, c:c + 1024]
+        max_err = max(max_err, (a.float() - b.float()).abs().max().item())
+        per_block.append(int((a.argmax(-1) == b.argmax(-1)).sum()))
+    agree = sum(per_block)
+    print(f"rwkv (a) logits vs the plain prefill ({plain_dt * 1e3:.1f} ms): "
+          f"max |err| {max_err:.4g}, top-1 agrees at {agree}/"
+          f"{PREFILL_TOKENS} = {agree / PREFILL_TOKENS:.4f} of positions; "
+          f"per 1024 positions, in order: {per_block}", flush=True)
+    del plain_logits, logits
+
+    # (b) the launcher's loop on the decode state, then the kernel
+    # prefill of its prompts: bf16 reported, f32 held to the tolerance
+    gen.manual_seed(2)
+    prompts = torch.randint(2, V, (LAUNCH_BATCH, LAUNCH_PROMPT),
+                            generator=gen, device=dev)
+    launcher.generate(params, cfg, prompts[:, :4], 2)     # warm-up
+    torch.cuda.synchronize()
+    steps = LAUNCH_PROMPT + LAUNCH_GEN - 1
+    params32 = M.from_state(cfg, {k: t.float() for k, t in
+                                  params.state_dict().items()})
+    dec_err = None
+    for dtname, weights in (("bfloat16", params), ("float32", params32)):
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        out, step_logits = launcher.generate(weights, cfg, prompts,
+                                             LAUNCH_GEN)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pre = prefill(weights, prompts)
+        torch.cuda.synchronize()
+        launches_b = dict(cuda.LAUNCHES)
+        print(f"rwkv (b) launcher {dtname}: batch {LAUNCH_BATCH}, prompt "
+              f"{LAUNCH_PROMPT}, gen {LAUNCH_GEN}: {steps} decode steps in "
+              f"{dt * 1e3:.3f} ms = {dt * 1e3 / steps:.3f} ms per decode "
+              f"step (one token for each of {LAUNCH_BATCH} sequences), "
+              f"{steps * LAUNCH_BATCH / dt:.1f} tokens/s; launches "
+              f"{launches_b}", flush=True)
+        _require(out.shape == (LAUNCH_BATCH, LAUNCH_GEN)
+                 and bool(((out >= 0) & (out < V)).all()),
+                 "generated tokens")
+        _require(launches_b["wkv6"] == cfg.n_layers,
+                 "the launcher check's prefill did not run wkv6 per layer")
+        dec = step_logits[:, :LAUNCH_PROMPT]
+        _require(bool(torch.isfinite(dec).all()), "decode logits")
+        for what, ref in (("kernel prefill", pre),
+                          ("plain prefill (control)",
+                           prefill_plain(weights, prompts))):
+            d = (dec.float() - ref.float()).abs()
+            beyond = int((d > MODEL_ATOL + MODEL_RTOL * ref.float().abs())
+                         .sum())
+            hit = (dec.argmax(-1) == ref.argmax(-1)).float()
+            by_pos = [round(hit[:, i:i + 8].mean().item(), 4)
+                      for i in range(0, LAUNCH_PROMPT, 8)]
+            print(f"rwkv (b) {dtname} decode logits at the {LAUNCH_PROMPT} "
+                  f"prompt positions vs the {what}: max |err| "
+                  f"{d.max().item():.4g}, {beyond}/{d.numel()} beyond atol "
+                  f"{MODEL_ATOL} + rtol {MODEL_RTOL}, top-1 agrees "
+                  f"{hit.mean().item():.4f} (per 8 positions, in order: "
+                  f"{by_pos}); max |err| at position 0: "
+                  f"{d[:, 0].max().item():.4g}", flush=True)
+        # the model's own rounding floor: the same plain prefill run on
+        # the first half of the prompts only (other matmul shapes, so
+        # other roundings; in exact arithmetic the logits are equal)
+        half = LAUNCH_PROMPT // 2
+        full = prefill_plain(weights, prompts)[:, :half]
+        part = prefill_plain(weights, prompts[:, :half])
+        d = (full.float() - part.float()).abs()
+        print(f"rwkv (b) {dtname} control: the plain prefill of the first "
+              f"{half} prompt tokens vs the plain prefill of all "
+              f"{LAUNCH_PROMPT} at those positions: max |err| "
+              f"{d.max().item():.4g}, top-1 agrees "
+              f"{(full.argmax(-1) == part.argmax(-1)).float().mean().item():.4f}",
+              flush=True)
+        if dtname == "float32":
+            dec_err = _close(torch, dec, pre, MODEL_ATOL, MODEL_RTOL,
+                             "f32 teacher-forced decode logits vs the "
+                             "kernel prefill")
+        del step_logits, pre, dec, full, part
+    del params32, params
+    _require(dec_err is not None, "the f32 launcher check did not run")
+    keep = records[0]
+    del records
+    torch.cuda.empty_cache()
+    return {"launches": launches["wkv6"], "layer": keep,
+            "max_abs_err": layer_err}
+
+
+def wkv6_timing(torch, served, parity_err) -> list[dict]:
+    """The kernel at one rwkv6-3b layer's prefill inputs, beside its
+    plain version and the bound."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6.kernel import wkv6_plain
+    r, k, v, w, u, out = served["layer"]
+    B, T, H, N = r.shape
+    label = (f"{RWKV_ARCH} layer prefill: r/k/v {list(r.shape)} "
+             f"{str(r.dtype)[6:]}, w {str(w.dtype)[6:]}, u {list(u.shape)} "
+             f"{str(u.dtype)[6:]}, y f32")
+    dev_ms = device_ms(torch, "wkv6", wkv_ops.wkv6, r, k, v, w, u,
+                       reps=LONG_REPS)
+    ms, reps = time_long_ms(torch, wkv_ops.wkv6, r, k, v, w, u)
+    plain_ms, plain_reps = time_long_ms(torch, wkv6_plain, r, k, v, w, u)
+    nbytes = _nbytes(r, k, v, w, u, out)
+    ops = 4 * N * N * T * H * B     # S update and r.S: one FMA per entry
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    note = ("none is one call: no PyTorch call runs a data-dependent-decay "
+            "linear recurrence")
+    row = {"case": label, "ms": ms, "device_ms": dev_ms, "reps": reps,
+           "plain_ms": plain_ms, "plain_reps": plain_reps,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "operations": ops, "library_ms": None,
+           "library_call": None, "library_note": note}
+    print(f"{'wkv6':>22} | {label}: {ms:.4f} ms [device "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms] ({reps}; "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+          f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms "
+          f"({plain_reps}), library n/a [{note}]", flush=True)
+    return [{"name": "wkv6", "route": "cuda",
+             "source": "src/repro_torch/csrc/wkv6.cu",
+             "replaces": "src/repro/kernels/wkv6/kernel.py:25",
+             "launches": served["launches"],
+             "max_abs_err": max(served["max_abs_err"], parity_err),
+             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": None, "cases": [row]}]
 
 
 if __name__ == "__main__":

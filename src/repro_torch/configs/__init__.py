@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
 The same names and numbers as the reference package's registry.  The
-port runs the dense attention + MLP archs; the others raise ``KeyError``
-until their modules are ported (ROADMAP.md, Queue 1 item 10).
+port runs the dense attention + MLP archs and rwkv6-3b; the others raise
+``KeyError`` until their modules are ported (ROADMAP.md, Queue 1 item
+10).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ ARCHS = [
     "deepseek-v3-671b", "moonshot-v1-16b-a3b", "rwkv6-3b",
     "whisper-small", "qwen2-vl-7b", "jamba-1.5-large-398b",
 ]
-PORTED = ("gemma2-2b", "gemma-2b", "qwen3-14b", "smollm-360m")
+PORTED = ("gemma2-2b", "gemma-2b", "qwen3-14b", "smollm-360m", "rwkv6-3b")
 
 
 def _module(arch: str):

@@ -29,7 +29,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"schedule_exec": 0, "rmsnorm": 0, "rmsnorm_reduce": 0,
-            "flash_attention": 0, "flash_attention_gather": 0}
+            "flash_attention": 0, "flash_attention_gather": 0, "wkv6": 0}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None     # wall time of this process's build
@@ -54,6 +54,9 @@ _SIGNATURES = {
     # the same with q_rows after v
     "repro_flash_attention_gather": [_i] + [_vp] * 5 + [_i64] * 9
                                     + [_i] * 6 + [_f, _f, _i, _i, _i, _vp],
+    # r/k/v dtype, w dtype, u dtype, r, k, v, w, u, y, r/k/v/w strides
+    # over (b, t, h), B, T, H, N, stream
+    "repro_wkv6": [_i] * 3 + [_vp] * 6 + [_i64] * 12 + [_i] * 4 + [_vp],
 }
 
 

@@ -1,8 +1,11 @@
-"""Serving launcher: greedy decode with a KV cache on one device.
+"""Serving launcher: greedy decode on one device, with a KV cache for
+attention layers and the O(1) recurrent state for rwkv layers.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --batch 4 --prompt-len 32 --gen 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu
 
 The prompt is fed token by token through the decode step (teacher
@@ -29,7 +32,8 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
     """Teacher-forced prefill through the decode step, then ``gen``
     greedy tokens.  Returns (tokens [B, gen] int32, logits [B, P+gen-1,
     V]): step i's logits follow token i of the fed sequence.  The KV
-    cache takes the weights' dtype (bf16, as in the reference)."""
+    cache and the rwkv token-shift carries take the weights' dtype (bf16,
+    as in the reference); the rwkv state ``s`` is f32."""
     B, P = prompts.shape
     max_len = P + gen
     cache = init_serve_cache(cfg, B, max_len, device=prompts.device,

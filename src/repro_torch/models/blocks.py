@@ -1,27 +1,24 @@
 """Residual block assembly: (norm -> mixer -> [norm] -> residual) +
 (norm -> ff -> [norm] -> residual).
 
-The port runs the ``attn`` mixer and the ``mlp`` feed-forward; the other
-mixers and feed-forwards raise ``NotImplementedError`` until their
-modules are ported (ROADMAP.md).
+The port runs the ``attn`` and ``rwkv`` mixers and the ``mlp`` and
+``cmix`` feed-forwards; the others raise ``NotImplementedError`` until
+their modules are ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, rwkv
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.config import BlockSpec, ModelConfig
 
 _NOT_PORTED = {
     "mla": "the MLA mixer (deepseek-v3; ROADMAP.md Queue 1 item 10)",
-    "rwkv": "the RWKV time mix (rwkv6-3b; ROADMAP.md Queue 1 item 10, "
-            "kernel Queue 2 item 7)",
     "mamba": "the mamba mixer (jamba; ROADMAP.md Queue 1 item 10, kernel "
              "Queue 2 item 6)",
     "moe": "the MoE feed-forward (ROADMAP.md Queue 1 item 10)",
-    "cmix": "the RWKV channel mix (rwkv6-3b; ROADMAP.md Queue 1 item 10)",
     "cross": "cross-attention (whisper; ROADMAP.md Queue 1 item 10)",
 }
 
@@ -40,8 +37,9 @@ def _norm_param(cfg: ModelConfig, d: int, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer: ``norm_mixer``, ``attn``, ``norm_mixer_post`` (with
-    post-block norms), ``norm_ff``, ``mlp``, ``norm_ff_post``.  With a
+    """One layer: ``norm_mixer``, the mixer (``attn`` or ``rwkv``),
+    ``norm_mixer_post`` (with post-block norms), ``norm_ff``, the
+    feed-forward (``mlp`` or ``cmix``), ``norm_ff_post``.  With a
     ``generator`` the weights take the reference's init distributions;
     without one they are left uninitialised."""
 
@@ -56,6 +54,11 @@ class Block(nn.Module):
                          if generator is None else
                          attention.init(cfg.attn, d, generator=generator,
                                         device=device))
+        elif spec.mixer == "rwkv":
+            self.rwkv = (rwkv.TimeMix(cfg.rwkv, d, device=device)
+                         if generator is None else
+                         rwkv.init(cfg.rwkv, d, generator=generator,
+                                   device=device))
         if cfg.post_block_norm:
             self.norm_mixer_post = _norm_param(cfg, d, device)
         if spec.ff != "none":
@@ -67,17 +70,30 @@ class Block(nn.Module):
                         if generator is None else
                         mlp.init(d, cfg.d_ff, cfg.gated_mlp,
                                  generator=generator, device=device))
+        elif spec.ff == "cmix":
+            self.cmix = (rwkv.ChannelMix(d, cfg.d_ff, device=device)
+                         if generator is None else
+                         rwkv.channel_mix_init(d, cfg.d_ff,
+                                               generator=generator,
+                                               device=device))
 
 
 def _norm(cfg: ModelConfig, x, w):
     return rmsnorm(x, w, cfg.norm_eps, gemma_style=cfg.gemma_norm)
 
 
-def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x):
+def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache=None):
+    """The feed-forward sublayer; with ``cache`` (decode) the channel
+    mix reads and updates its token-shift carry ``cache["cmix"]``."""
     if spec.ff == "none":
         return x
     h = _norm(cfg, x, p.norm_ff)
-    h = mlp.forward(p.mlp, h, cfg.mlp_act)
+    if spec.ff == "mlp":
+        h = mlp.forward(p.mlp, h, cfg.mlp_act)
+    elif cache is None:
+        h = rwkv.channel_mix(p.cmix, h)
+    else:
+        h, cache["cmix"] = rwkv.decode_channel_mix(p.cmix, h, cache["cmix"])
     if cfg.post_block_norm:
         h = _norm(cfg, h, p.norm_ff_post)
     return x + h
@@ -91,6 +107,8 @@ def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
         h = attention.forward(p.attn, cfg.attn, h, positions=positions,
                               window=spec.window, eps=cfg.norm_eps,
                               use_kernel=use_kernel)
+    elif spec.mixer == "rwkv":
+        h = rwkv.time_mix(p.rwkv, cfg.rwkv, h, use_kernel=use_kernel)
     else:
         h = torch.zeros_like(h)
     if cfg.post_block_norm:
@@ -105,11 +123,22 @@ def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
 
 def init_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
                *, device=None, dtype=torch.bfloat16) -> dict:
+    """The layer's decode cache: ``attn`` (k/v in ``dtype``), or the
+    ``rwkv`` state (``s`` f32, carries in ``dtype``) and, for a channel
+    mix, its own carry ``cmix["x_cm"]`` in ``dtype``, as the reference
+    keeps ``cache["rwkv"]`` and ``cache["cmix"]`` apart."""
     check_supported(spec)
+    c = {}
     if spec.mixer == "attn":
-        return {"attn": attention.init_cache(cfg.attn, batch, max_len,
-                                             device=device, dtype=dtype)}
-    return {}
+        c["attn"] = attention.init_cache(cfg.attn, batch, max_len,
+                                         device=device, dtype=dtype)
+    elif spec.mixer == "rwkv":
+        c["rwkv"] = rwkv.init_state(cfg.rwkv, batch, cfg.d_model,
+                                    device=device, dtype=dtype)
+    if spec.ff == "cmix":
+        c["cmix"] = {"x_cm": torch.zeros((batch, cfg.d_model),
+                                         device=device, dtype=dtype)}
+    return c
 
 
 def decode(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache: dict):
@@ -119,8 +148,11 @@ def decode(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache: dict):
         h, cache["attn"] = attention.decode_step(
             p.attn, cfg.attn, h, cache["attn"], window=spec.window,
             eps=cfg.norm_eps)
+    elif spec.mixer == "rwkv":
+        h, cache["rwkv"] = rwkv.decode_time_mix(p.rwkv, cfg.rwkv, h,
+                                                cache["rwkv"])
     else:
         h = torch.zeros_like(h)
     if cfg.post_block_norm:
         h = _norm(cfg, h, p.norm_mixer_post)
-    return _ff(p, spec, cfg, x + h), cache
+    return _ff(p, spec, cfg, x + h, cache), cache

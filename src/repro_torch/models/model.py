@@ -118,8 +118,10 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None, dtype=torch.bfloat16) -> dict:
-    """One cache per layer (k/v [batch, max_len, K, D] in ``dtype``,
-    bf16 as in the reference, for attention layers)."""
+    """One cache per layer: k/v [batch, max_len, K, D] in ``dtype`` (bf16
+    as in the reference) for attention layers; for rwkv layers the
+    recurrent state (``s`` f32, the token-shift carries in ``dtype``;
+    see ``rwkv.init_state``)."""
     _check_supported(cfg)
     return {"layers": [blocks.init_cache(spec, cfg, batch, max_len,
                                          device=device, dtype=dtype)

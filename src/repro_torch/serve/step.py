@@ -1,4 +1,5 @@
-"""Serving steps: batched prefill + KV-cache decode.
+"""Serving steps: batched prefill + decode on a cache (the KV cache of
+attention layers, the O(1) recurrent state of rwkv layers).
 
 One device, no mesh and no jit: the steps are plain functions over the
 port's ``Model``.  Decode samples greedily (argmax), like the
@@ -36,13 +37,16 @@ def _check(opts: ServeOptions) -> None:
 
 def init_serve_cache(cfg, batch: int, max_len: int, *, device=None,
                      dtype=torch.bfloat16):
+    """The decode cache of every layer: k/v in ``dtype``; for rwkv the
+    state ``s`` in f32 and the token-shift carries in ``dtype``."""
     return M.init_cache(cfg, batch, max_len, device=device, dtype=dtype)
 
 
 def make_prefill_step(cfg, opts: ServeOptions) -> Callable:
     """(params, tokens [B, S]) -> logits [B, S, V]: the full-sequence
     forward used for prompt processing; with ``opts.use_kernel`` each
-    attention layer runs the flash kernel."""
+    attention layer runs the flash kernel and each rwkv layer the wkv6
+    kernel."""
     _check(opts)
 
     @torch.no_grad()

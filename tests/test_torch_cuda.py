@@ -15,7 +15,9 @@ order); the flash-attention kernels are within the reference's kernel
 tolerances of their plain version, ``3e-5`` in f32 and ``2e-2`` in bf16
 (another tile order of the online softmax; in bf16 the tensor-core body
 also rounds the attention weights to bf16), and the gather kernel's
-dead rows are exact zeros.
+dead rows are exact zeros; the wkv6 kernel is within the reference's
+kernel tolerances of its plain version, ``2e-5`` with f32 inputs and
+``2e-2`` with bf16 ones (another order of the f32 sums over the head).
 """
 import numpy as np
 import pytest
@@ -36,6 +38,9 @@ from repro_torch.kernels.attention.kernel import (flash_attention_bshd,
 from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_2d, rmsnorm_plain,
                                                 rmsnorm_reduce_2d,
                                                 rmsnorm_reduce_plain)
+from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.kernels.wkv6.kernel import wkv6_bthn, wkv6_plain
+from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +232,75 @@ def test_flash_attention_op_grad_and_errors(cuda_device):
         z = torch.zeros(1, 64, 1, 64, device=cuda_device,
                         dtype=torch.float16)
         flash_attention_bshd(z, z, z)
+
+
+WKV_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _wkv_inputs(rng, device, B, T, H, N, rkv, wdt):
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, N))
+                                .astype(np.float32)).to(device, rkv)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.from_numpy(
+        rng.standard_normal((B, T, H, N)).astype(np.float32)))).to(device,
+                                                                   wdt)
+    u = torch.from_numpy(rng.standard_normal((H, N)).astype(np.float32)
+                         ).to(device)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("rkv,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("B,T,H,N", [(1, 16, 1, 8), (2, 64, 3, 16),
+                                     (1, 128, 2, 32), (2, 48, 4, 8),
+                                     (1, 200, 40, 64), (2, 33, 2, 128)])
+def test_wkv6_kernel_matches_plain(cuda_device, rkv, wdt, B, T, H, N):
+    """The reference's sweep shapes, the model's head size 64 at 40
+    heads and a T that is no multiple of 64; f32, bf16 and the model's
+    mix (bf16 r/k/v, f32 w)."""
+    rng = np.random.default_rng(T + H + N)
+    args = _wkv_inputs(rng, cuda_device, B, T, H, N, rkv, wdt)
+    n0 = cuda.LAUNCHES["wkv6"]
+    got = wkv6_bthn(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["wkv6"] == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (B, T, H, N)
+    torch.testing.assert_close(got, wkv6_plain(*args),
+                               **WKV_TOL[torch.float32 if rkv == wdt ==
+                                         torch.float32 else torch.bfloat16])
+
+
+def test_wkv6_kernel_reads_strides(cuda_device):
+    """r/k/v as views of one [B, T, H, 3N] projection (the head stride is
+    3N) give what their contiguous copies give, bit for bit."""
+    rng = np.random.default_rng(21)
+    B, T, H, N = 2, 70, 4, 64
+    rkv = torch.from_numpy(rng.standard_normal((B, T, H, 3 * N))
+                           .astype(np.float32)).to(cuda_device)
+    r, k, v = rkv[..., :N], rkv[..., N:2 * N], rkv[..., 2 * N:]
+    _, _, _, w, u = _wkv_inputs(rng, cuda_device, B, T, H, N,
+                                torch.float32, torch.float32)
+    got = wkv6_bthn(r, k, v, w, u)
+    want = wkv6_bthn(r.contiguous(), k.contiguous(), v.contiguous(), w, u)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, wkv6_plain(r, k, v, w, u),
+                               **WKV_TOL[torch.float32])
+
+
+def test_wkv6_op_grad_and_errors(cuda_device):
+    rng = np.random.default_rng(22)
+    args = _wkv_inputs(rng, cuda_device, 1, 32, 2, 16, torch.float32,
+                       torch.float32)
+    rg = args[0].clone().requires_grad_()
+    wkv_ops.wkv6(rg, *args[1:]).sum().backward()
+    rr = args[0].clone().requires_grad_()
+    wkv6_ref(rr, *args[1:])[0].sum().backward()
+    torch.testing.assert_close(rg.grad, rr.grad, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="head size"):
+        wkv6_bthn(*_wkv_inputs(rng, cuda_device, 1, 8, 1, 12, torch.float32,
+                               torch.float32))
+    with pytest.raises(TypeError, match="dtype"):
+        wkv6_bthn(*_wkv_inputs(rng, cuda_device, 1, 8, 1, 16, torch.float16,
+                               torch.float32))
