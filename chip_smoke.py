@@ -51,14 +51,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              4, prompt 32, gen 16 on the O(1) decode state, in bf16
              (reported) and with the weights widened to f32 (held to the
              model tolerance against the kernel prefill);
-6. timing  — per case, the kernel, its plain version and a library
+6. jamba   — the selective-scan kernel against its plain version on
+             random floats (the reference's sweep shapes, T that are no
+             multiple of 64, S of 4, 8 and 16; f32, bf16 and the f32
+             model's mix of bf16 dt with f32 xc/B/C), then the earlier
+             models freed and jamba-1.5-large-398b's one-card cut (one
+             period of 8 layers at full width, experts 0-7 of 16, random
+             bf16 weights from a seeded generator on the card): (a)
+             counters reset, the kernel prefill of one 8192-token
+             prompt, counters read (7 mamba_scan and 1 flash launches),
+             each mamba layer's kernel output checked against
+             ``selective_scan_plain`` on the same inputs, the largest
+             |residual| after each layer printed and the logits reported
+             against the plain prefill; (b) the launcher's loop at batch
+             4, prompt 32, gen 16 in bf16 (reported; the capacity
+             dispatch drops pairs there); (c) layers 0-4 with the same
+             weights widened to f32 at batch 1, where the teacher-forced
+             decode logits must match the kernel prefill's at the
+             reference's model tolerance;
+7. timing  — per case, the kernel, its plain version and a library
              call: CUDA events around 20 calls enqueued back to back,
              divided by 20, median of 5 such batches (after warm-up;
              fewer for calls over 100 ms, stated in the line); the
              kernel's own device time read by name from
              ``torch.profiler``; beside the bound (bytes at 3.35 TB/s,
              or operations at 67 TFLOP/s f32 / 989 TFLOP/s bf16 tensor
-             cores for attention).
+             cores for attention / the exps of the scan at 16 per clock
+             per SM on the special-function units, at the card's top SM
+             clock).
 
 The last two lines of standard output are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -67,6 +87,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -124,9 +145,20 @@ def main() -> int:
     served = serve_path(torch, dev)
     gathered = gather_path(torch, dev, served)
     rwkv_served = rwkv_serve_path(torch, dev)
+    scan_err = mamba_scan_parity(torch, dev)
+    jamba_served = jamba_serve_path(torch, dev)
+    # the kernels timed last are profiled before anything else is timed:
+    # profiled after the long plain versions, their traces held no
+    # device records (see device_ms)
+    early = early_device_ms(torch, rwkv_served, jamba_served)
     kernels = timing(torch, cases)
     kernels += attention_timing(torch, served, gathered, attn_err)
-    kernels += wkv6_timing(torch, rwkv_served, wkv_err)
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["cases"].append(jamba_attention_timing(torch, jamba_served,
+                                                 early["jamba_attention"]))
+    kernels += wkv6_timing(torch, rwkv_served, wkv_err, early["wkv6"])
+    kernels += mamba_scan_timing(torch, jamba_served, scan_err,
+                                 early["mamba_scan"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -404,13 +436,17 @@ KERNEL_SYMBOLS = {"schedule_exec": "schedule_exec_kernel",
                   # tensor cores) or flash_attention_kernel (CUDA cores)
                   "flash_attention": "flash_attention_",
                   "flash_attention_gather": "flash_attention_",
-                  "wkv6": "wkv6_kernel"}
+                  "wkv6": "wkv6_kernel", "mamba_scan": "mamba_scan_kernel"}
 
 
 def device_ms(torch, kernel: str, fn, *args, reps=REPS) -> float | None:
     """The kernel's own device time per launch, read by its symbol from
     a ``torch.profiler`` trace of ``reps`` calls (None when the trace
-    holds no device time for it)."""
+    holds no device time for it).  On the card, traces taken late in
+    this script, after a plain recurrence (about 10^5 small launches a
+    call) or jamba's plain attention had been timed, held the launches'
+    host records but no device records; the same kernels profiled
+    before those timings had their device time (``early_device_ms``)."""
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
@@ -824,7 +860,7 @@ def _flex(torch, q, k, v, window, cap):
                                                    flex_attention)
 
     def score_mod(score, b, h, q_idx, kv_idx):
-        return cap * torch.tanh(score / cap)
+        return score if cap is None else cap * torch.tanh(score / cap)
 
     def mask_mod(b, h, q_idx, kv_idx):
         live = kv_idx <= q_idx
@@ -1189,9 +1225,9 @@ def rwkv_serve_path(torch, dev) -> dict:
             "max_abs_err": layer_err}
 
 
-def wkv6_timing(torch, served, parity_err) -> list[dict]:
+def wkv6_timing(torch, served, parity_err, dev_ms) -> list[dict]:
     """The kernel at one rwkv6-3b layer's prefill inputs, beside its
-    plain version and the bound."""
+    plain version and the bound (``dev_ms`` from ``early_device_ms``)."""
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.kernels.wkv6.kernel import wkv6_plain
     r, k, v, w, u, out = served["layer"]
@@ -1199,8 +1235,6 @@ def wkv6_timing(torch, served, parity_err) -> list[dict]:
     label = (f"{RWKV_ARCH} layer prefill: r/k/v {list(r.shape)} "
              f"{str(r.dtype)[6:]}, w {str(w.dtype)[6:]}, u {list(u.shape)} "
              f"{str(u.dtype)[6:]}, y f32")
-    dev_ms = device_ms(torch, "wkv6", wkv_ops.wkv6, r, k, v, w, u,
-                       reps=LONG_REPS)
     ms, reps = time_long_ms(torch, wkv_ops.wkv6, r, k, v, w, u)
     plain_ms, plain_reps = time_long_ms(torch, wkv6_plain, r, k, v, w, u)
     nbytes = _nbytes(r, k, v, w, u, out)
@@ -1229,6 +1263,432 @@ def wkv6_timing(torch, served, parity_err) -> list[dict]:
              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
              "library_ms": None, "cases": [row]}]
 
+
+# ---------------------------------------------------------------------------
+# the selective scan: parity, jamba-1.5-large-398b's one-card cut served,
+# timing
+# ---------------------------------------------------------------------------
+
+# the reference's kernel tolerances (tests/test_kernels.py:19-21)
+SCAN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SCAN_SHAPES = [(1, 16, 8, 4), (2, 64, 32, 8), (1, 128, 64, 16),
+               (2, 48, 24, 8),                 # the reference's sweep
+               (1, 200, 1024, 16),             # T no multiple of 64
+               (2, 77, 300, 8), (3, 33, 130, 4),
+               (4, 40, 16384, 16), (2, 24, 16384, 8)]   # 1 and 2 lanes
+# xc (and B, C), dt; the last is the f32 model's mix
+SCAN_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
+               ("float32", "bfloat16")]
+JAMBA_ARCH = "jamba-1.5-large-398b"
+HELD_LAYERS = 5          # layers 0-4: mamba+mlp, mamba+moe, attn+mlp
+HELD_PROMPT, HELD_GEN = 32, 4
+H100_SMS = 132
+SFU_EXPS_PER_CLOCK_PER_SM = 16   # H100 special-function units (ex2)
+
+
+def _scan_inputs(torch, gen, dev, B, T, Di, S, x, dt):
+    """As the reference's sweep draws them: xc, B, C ~ normal, dt = 0.1
+    |normal|, A = -exp(normal), D ~ normal; xc, B and C in ``x``, dt in
+    ``dt``, A and D f32."""
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return (rnd((B, T, Di)).to(getattr(torch, x)),
+            (rnd((B, T, Di)).abs() * 0.1).to(getattr(torch, dt)),
+            rnd((B, T, S)).to(getattr(torch, x)),
+            rnd((B, T, S)).to(getattr(torch, x)),
+            -torch.exp(rnd((Di, S))), rnd((Di,)))
+
+
+def mamba_scan_parity(torch, dev) -> float:
+    """The kernel against its plain version; returns the max |err|."""
+    from repro_torch import cuda
+    from repro_torch.kernels.mamba_scan.kernel import (selective_scan_bdt,
+                                                       selective_scan_plain)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    checked, worst = 0, {}
+    for B, T, Di, S in SCAN_SHAPES:
+        for dts in SCAN_DTYPES:
+            args = _scan_inputs(torch, gen, dev, B, T, Di, S, *dts)
+            n0 = cuda.LAUNCHES["mamba_scan"]
+            got = selective_scan_bdt(*args)
+            torch.cuda.synchronize()
+            _require(cuda.LAUNCHES["mamba_scan"] == n0 + 1,
+                     "mamba_scan: not one launch per call")
+            tol = SCAN_TOL["float32" if set(dts) == {"float32"}
+                           else "bfloat16"]
+            key = "xc/B/C {}, dt {}".format(*dts)
+            err = _close(torch, got, selective_scan_plain(*args), tol, tol,
+                         f"mamba_scan B={B} T={T} Di={Di} S={S} {key}")
+            worst[key] = max(worst.get(key, 0.0), err)
+            checked += 1
+    print(f"mamba_scan parity: {checked} kernel calls (the reference's "
+          f"sweep shapes, T=200/77/33/40/24, Di=1024/300/130/16384, S "
+          f"4/8/16, 4, 2 and 1 lanes per channel; f32, bf16 and bf16 dt "
+          f"with f32 xc/B/C) within atol=rtol 2e-5 (all f32) / "
+          f"2e-2 (bf16 inputs); max |err| {worst}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return max(worst.values())
+
+
+def _record(module, name, sink, keep):
+    """Replace ``module.name`` by a wrapper that appends ``keep(args,
+    out)`` to ``sink``; returns the original."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        sink.append(keep(args, kw, out))
+        return out
+    setattr(module, name, wrapper)
+    return real
+
+
+def jamba_serve_path(torch, dev) -> dict:
+    """jamba-1.5-large-398b's one-card cut: (a) the kernel prefill of one
+    8192-token prompt, (b) the launcher's loop in bf16, (c) layers 0-4
+    widened to f32 at batch 1, each with the counters reset just before
+    and read just after."""
+    from torch import nn
+    from repro_torch import configs, cuda
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_plain
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeOptions, make_prefill_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"jamba: device memory {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated before the phase (the earlier phases' models "
+          f"freed)", flush=True)
+    cfg = configs.get_one_card(JAMBA_ARCH)
+    lo, hi = cfg.moe.held_range()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    wbytes = _nbytes(*params.parameters())
+    print(f"jamba: {cfg.name}: {cfg.n_layers} layers (one period) at full "
+          f"width, experts {lo}-{hi - 1} of {cfg.moe.n_experts} held, "
+          f"{cfg.param_count():,} parameters = {wbytes / 1e9:.2f} GB (bf16; "
+          f"f32 router/dt_bias/A_log/D; random from seed 0) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    V = cfg.vocab_size
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.blocks())
+    n_attn = sum(s.mixer == "attn" for s in cfg.blocks())
+    prefill = make_prefill_step(cfg, ServeOptions(use_kernel=True))
+    prefill_plain = make_prefill_step(cfg, ServeOptions(use_kernel=False))
+    gen.manual_seed(1)
+    prompt = torch.randint(2, V, (1, PREFILL_TOKENS), generator=gen,
+                           device=dev)
+    prefill(params, prompt[:, :256])             # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # (a) the kernel prefill, recording each mamba layer's scan inputs,
+    # the attention layer's q/k/v and each layer's largest |residual|
+    scans, attns, resid = [], [], []
+    reals = [(scan_ops, "selective_scan", _record(
+                 scan_ops, "selective_scan", scans,
+                 lambda a, kw, out: (*a[:6], out))),
+             (attn_ops, "flash_attention", _record(
+                 attn_ops, "flash_attention", attns,
+                 lambda a, kw, out: (*a[:3], kw, out))),
+             (blocks, "forward", _record(
+                 blocks, "forward", resid,
+                 lambda a, kw, out: out.abs().max()))]
+    try:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill(params, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+    finally:
+        for module, name, real in reals:
+            setattr(module, name, real)
+    print(f"jamba (a) prefill: B=1 S={PREFILL_TOKENS} in "
+          f"{prefill_s * 1e3:.3f} ms = {PREFILL_TOKENS / prefill_s:.1f} "
+          f"tokens/s (host clock around the step, synchronized; the "
+          f"residual and input recording included), launches {launches}",
+          flush=True)
+    _require(launches["mamba_scan"] == n_mamba == 7,
+             f"prefill launched mamba_scan {launches['mamba_scan']} times, "
+             f"not {n_mamba}")
+    _require(launches["flash_attention"] == n_attn == 1,
+             f"prefill launched flash_attention "
+             f"{launches['flash_attention']} times, not {n_attn}")
+    _require(len(scans) == n_mamba and len(resid) == cfg.n_layers,
+             "not one scan per mamba layer")
+    _require(logits.shape == (1, PREFILL_TOKENS, V)
+             and bool(torch.isfinite(logits).all()), "prefill logits")
+    xc0, dt0, b0, *_ = scans[0]
+    _require(xc0.dtype == dt0.dtype == b0.dtype == torch.bfloat16,
+             "the bf16 model does not call the scan with bf16 xc/dt/B/C")
+    print(f"jamba (a) largest |residual| after each layer: "
+          f"{[round(float(r), 2) for r in resid]} (bf16; one ulp at 1e4 "
+          f"is 64)", flush=True)
+    print(f"jamba (a) device memory: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated after the prefill ({len(scans)} layers' scan "
+          f"inputs and outputs recorded)", flush=True)
+
+    layer_err = 0.0
+    for i, (*args, out) in enumerate(scans):
+        layer_err = max(layer_err, _close(
+            torch, out, selective_scan_plain(*args), SCAN_TOL["bfloat16"],
+            SCAN_TOL["bfloat16"], f"mamba layer {i} scan kernel vs "
+            f"selective_scan_plain"))
+    print(f"jamba (a) layers: all {len(scans)} mamba layers' scan outputs "
+          f"within 2e-2 of selective_scan_plain on the same inputs, max "
+          f"|err| {layer_err:.4g}", flush=True)
+    keep = {"scan": scans[0], "attn": attns[0]}
+    del scans, attns, xc0, dt0, b0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    plain_logits = prefill_plain(params, prompt)
+    torch.cuda.synchronize()
+    plain_dt = time.perf_counter() - t0
+    max_err, per_block = 0.0, []
+    for c in range(0, PREFILL_TOKENS, 1024):
+        a, b = logits[0, c:c + 1024], plain_logits[0, c:c + 1024]
+        max_err = max(max_err, (a.float() - b.float()).abs().max().item())
+        per_block.append(int((a.argmax(-1) == b.argmax(-1)).sum()))
+    agree = sum(per_block)
+    print(f"jamba (a) logits vs the plain prefill ({plain_dt * 1e3:.1f} ms; "
+          f"reported, not held: past layer 1 the bf16 residual sits near "
+          f"1e4): max |err| {max_err:.4g}, top-1 agrees at {agree}/"
+          f"{PREFILL_TOKENS} = {agree / PREFILL_TOKENS:.4f} of positions; "
+          f"per 1024 positions, in order: {per_block}", flush=True)
+    del plain_logits, logits
+
+    # (b) the launcher's loop in bf16 (reported: at batch 4 the capacity
+    # dispatch's C is 1 and drops pairs), then the kernel prefill of its
+    # prompts
+    gen.manual_seed(2)
+    prompts = torch.randint(2, V, (LAUNCH_BATCH, LAUNCH_PROMPT),
+                            generator=gen, device=dev)
+    launcher.generate(params, cfg, prompts[:, :4], 2)     # warm-up
+    torch.cuda.synchronize()
+    steps = LAUNCH_PROMPT + LAUNCH_GEN - 1
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    out, step_logits = launcher.generate(params, cfg, prompts, LAUNCH_GEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pre = prefill(params, prompts)
+    torch.cuda.synchronize()
+    launches_b = dict(cuda.LAUNCHES)
+    print(f"jamba (b) launcher bfloat16: batch {LAUNCH_BATCH}, prompt "
+          f"{LAUNCH_PROMPT}, gen {LAUNCH_GEN}: {steps} decode steps in "
+          f"{dt * 1e3:.3f} ms = {dt * 1e3 / steps:.3f} ms per decode step "
+          f"(one token for each of {LAUNCH_BATCH} sequences), "
+          f"{steps * LAUNCH_BATCH / dt:.1f} tokens/s; launches {launches_b}",
+          flush=True)
+    _require(out.shape == (LAUNCH_BATCH, LAUNCH_GEN)
+             and bool(((out >= 0) & (out < V)).all()), "generated tokens")
+    _require(launches_b["mamba_scan"] == n_mamba,
+             "the launcher check's prefill did not run the scan per layer")
+    dec = step_logits[:, :LAUNCH_PROMPT]
+    _require(bool(torch.isfinite(dec).all()), "decode logits")
+    d = (dec.float() - pre.float()).abs()
+    hit = (dec.argmax(-1) == pre.argmax(-1)).float()
+    print(f"jamba (b) bfloat16 decode logits at the {LAUNCH_PROMPT} prompt "
+          f"positions vs the kernel prefill (reported): max |err| "
+          f"{d.max().item():.4g}, {int((d > MODEL_ATOL + MODEL_RTOL * pre.float().abs()).sum())}"
+          f"/{d.numel()} beyond atol {MODEL_ATOL} + rtol {MODEL_RTOL}, top-1 "
+          f"agrees {hit.mean().item():.4f}", flush=True)
+    del step_logits, pre, dec, d
+
+    # (c) layers 0-4 (every kind of layer) with the same weights widened
+    # to f32, at batch 1, where the capacity dispatch drops nothing: the
+    # teacher-forced decode logits held to the model tolerance against
+    # the kernel prefill's
+    params.layers = nn.ModuleList(list(params.layers)[:HELD_LAYERS])
+    torch.cuda.empty_cache()
+    for p in params.parameters():
+        p.data = p.data.float()
+    cfg5 = dataclasses.replace(cfg, name=f"{cfg.name}-layers-0-4",
+                               period=cfg.period[:HELD_LAYERS])
+    prefill5 = make_prefill_step(cfg5, ServeOptions(use_kernel=True))
+    print(f"jamba (c) layers 0-{HELD_LAYERS - 1} "
+          f"({[(s.mixer, s.ff) for s in cfg5.blocks()]}) widened to f32: "
+          f"{_nbytes(*params.parameters()) / 1e9:.2f} GB, device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    gen.manual_seed(3)
+    prompt1 = torch.randint(2, V, (1, HELD_PROMPT), generator=gen, device=dev)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    out1, step_logits = launcher.generate(params, cfg5, prompt1, HELD_GEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pre = prefill5(params, prompt1)
+    torch.cuda.synchronize()
+    launches_c = dict(cuda.LAUNCHES)
+    steps1 = HELD_PROMPT + HELD_GEN - 1
+    print(f"jamba (c) launcher float32: batch 1, prompt {HELD_PROMPT}, gen "
+          f"{HELD_GEN}: {steps1} decode steps in {dt * 1e3:.3f} ms = "
+          f"{dt * 1e3 / steps1:.3f} ms per step; launches {launches_c}",
+          flush=True)
+    _require(launches_c["mamba_scan"] == HELD_LAYERS - 1,
+             "the held check's prefill did not run the scan per layer")
+    dec = step_logits[:, :HELD_PROMPT]
+    dec_err = _close(torch, dec, pre, MODEL_ATOL, MODEL_RTOL,
+                     "f32 teacher-forced decode logits (layers 0-4, batch "
+                     "1) vs the kernel prefill")
+    print(f"jamba (c) float32 decode logits at the {HELD_PROMPT} prompt "
+          f"positions vs the kernel prefill: max |err| {dec_err:.4g} "
+          f"(within atol {MODEL_ATOL} + rtol {MODEL_RTOL}; the two differ by "
+          f"dt's bf16 rounding on the kernel path and the decode state's "
+          f"bf16 conv window), top-1 agrees "
+          f"{(dec.argmax(-1) == pre.argmax(-1)).float().mean().item():.4f}, "
+          f"max |logit| {pre.abs().max().item():.4g}", flush=True)
+    del params, step_logits, pre, dec
+    torch.cuda.empty_cache()
+    print(f"jamba: device memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB allocated during the phase", flush=True)
+    return {"launches": launches["mamba_scan"], "scan": keep["scan"],
+            "attn": keep["attn"], "max_abs_err": layer_err}
+
+
+def _sm_clock_hz() -> float:
+    """The card's top SM clock, from nvidia-smi."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def _jamba_attention(served):
+    """The flash op at the recorded jamba attention layer's settings."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    kw = served["attn"][3]
+    return functools.partial(attn_ops.flash_attention, causal=True,
+                             window=kw["window"], softcap=kw["softcap"])
+
+
+def early_device_ms(torch, rwkv_served, jamba_served) -> dict:
+    """Device times of the wkv6 and scan kernels and of the flash kernel
+    at jamba's attention shape, at the recorded layers' inputs."""
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    return {"wkv6": device_ms(torch, "wkv6", wkv_ops.wkv6,
+                              *rwkv_served["layer"][:5], reps=LONG_REPS),
+            "mamba_scan": device_ms(torch, "mamba_scan",
+                                    scan_ops.selective_scan,
+                                    *jamba_served["scan"][:6],
+                                    reps=LONG_REPS),
+            "jamba_attention": device_ms(torch, "flash_attention",
+                                         _jamba_attention(jamba_served),
+                                         *jamba_served["attn"][:3],
+                                         reps=LONG_REPS)}
+
+
+def mamba_scan_timing(torch, served, parity_err, dev_ms) -> list[dict]:
+    """The kernel at one jamba layer's prefill inputs, beside its plain
+    version and the bound (``dev_ms`` from ``early_device_ms``)."""
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_plain
+    xc, dt, Bc, Cc, A, D, out = served["scan"]
+    B, T, Di = xc.shape
+    S = Bc.shape[-1]
+    label = (f"{JAMBA_ARCH} mamba layer prefill: xc/dt {list(xc.shape)} "
+             f"{str(xc.dtype)[6:]}/{str(dt.dtype)[6:]}, B/C {list(Bc.shape)} "
+             f"{str(Bc.dtype)[6:]}, A {list(A.shape)} f32, y f32")
+    args = (xc, dt, Bc, Cc, A, D)
+    ms, reps = time_long_ms(torch, scan_ops.selective_scan, *args)
+    plain_ms, plain_reps = time_long_ms(torch, selective_scan_plain, *args)
+    nbytes = _nbytes(*args, out)
+    updates = B * T * Di * S
+    ops = 6 * updates           # dt*A, dt*x*B, the h FMA, the y FMA
+    clock = _sm_clock_hz()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f32 = ops / F32_OPS_PER_S * 1e3
+    # one exp per update on the special-function units
+    t_exp = updates / (H100_SMS * SFU_EXPS_PER_CLOCK_PER_SM * clock) * 1e3
+    t_ops = max(t_f32, t_exp)
+    note = ("none is one call: no PyTorch call runs an input-dependent "
+            "selective state-space recurrence")
+    row = {"case": label, "ms": ms, "device_ms": dev_ms, "reps": reps,
+           "plain_ms": plain_ms, "plain_reps": plain_reps,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "operations": ops, "exps": updates,
+           "bytes_ms": t_bytes, "f32_ms": t_f32, "exp_ms": t_exp,
+           "sm_clock_mhz": clock / 1e6, "library_ms": None,
+           "library_call": None, "library_note": note}
+    print(f"{'mamba_scan':>22} | {label}: {ms:.4f} ms [device "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms] ({reps}; "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}: bytes "
+          f"{t_bytes:.4f}, f32 {t_f32:.4f}, exps {t_exp:.4f} at "
+          f"{clock / 1e6:.0f} MHz; {updates / ms / 1e9:.2f} T (t, d, s) "
+          f"updates/s), plain {plain_ms:.4f} ms ({plain_reps}), library n/a "
+          f"[{note}]", flush=True)
+    return [{"name": "mamba_scan", "route": "cuda",
+             "source": "src/repro_torch/csrc/mamba_scan.cu",
+             "replaces": "src/repro/kernels/mamba_scan/kernel.py:20",
+             "launches": served["launches"],
+             "max_abs_err": max(served["max_abs_err"], parity_err),
+             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": None, "cases": [row]}]
+
+
+def jamba_attention_timing(torch, served, dev_ms) -> dict:
+    """The flash kernel at jamba's attention layer (64 q heads, 8 kv
+    heads, head_dim 128, causal, no rope or softcap), beside its plain
+    version, the bound and flex_attention (``dev_ms`` from
+    ``early_device_ms``)."""
+    from repro_torch.kernels.attention.kernel import flash_attention_plain
+    q, k, v, kw, out = served["attn"]
+    win, cap = kw["window"], kw["softcap"]
+    label = (f"{JAMBA_ARCH} attention layer: q {list(q.shape)} k/v "
+             f"{list(k.shape)} {str(q.dtype)[6:]}, causal, window {win}, "
+             f"softcap {cap}")
+    kern = _jamba_attention(served)
+
+    def plain(q, k, v):
+        return flash_attention_plain(q, k, v, causal=True, window=win,
+                                     softcap=cap)
+    ms, reps = time_long_ms(torch, kern, q, k, v)
+    plain_ms, plain_reps = time_long_ms(torch, plain, q, k, v)
+    B, S, H, D = q.shape
+    pairs = _live_pairs(S, win)
+    flops = 4 * D * H * B * pairs
+    nbytes = _nbytes(q, k, v, out)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_TC_OPS_PER_S * 1e3
+    library = ("torch.compile(flex_attention) with a causal mask_mod")
+    try:
+        flex = _flex(torch, q, k, v, win, cap)
+        flex_err = (flex(q, k, v).float() - out.float()).abs().max()
+        library_ms, _ = time_long_ms(torch, flex, q, k, v)
+        note = f"flex max |diff| vs kernel {flex_err.item():.4g}"
+    except Exception as e:               # the yardstick, not the port
+        library, library_ms = None, None
+        note = (f"none is one call: flex_attention failed on this card "
+                f"({type(e).__name__}: {str(e)[:200]})")
+    row = {"case": label, "ms": ms, "device_ms": dev_ms, "reps": reps,
+           "plain_ms": plain_ms, "plain_reps": plain_reps,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "operations": flops, "live_pairs": pairs,
+           "library_ms": library_ms, "library_call": library,
+           "library_note": note}
+    print(f"{'flash_attention':>22} | {label}: {ms:.4f} ms [device "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms] ({reps}; "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
+          f"({plain_reps}), library "
+          f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
+          f"[{note}]", flush=True)
+    return row
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,9 +1,11 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
 The same names and numbers as the reference package's registry.  The
-port runs the dense attention + MLP archs and rwkv6-3b; the others raise
-``KeyError`` until their modules are ported (ROADMAP.md, Queue 1 item
-10).
+port runs the dense attention + MLP archs, rwkv6-3b and
+jamba-1.5-large-398b; the others raise ``KeyError`` until their modules
+are ported (ROADMAP.md, Queue 1 item 10).  ``get_one_card(arch)`` is the
+cut of a model too large for one card (jamba: one period and rank 0's
+share of the experts), named in the config's own file.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ ARCHS = [
     "deepseek-v3-671b", "moonshot-v1-16b-a3b", "rwkv6-3b",
     "whisper-small", "qwen2-vl-7b", "jamba-1.5-large-398b",
 ]
-PORTED = ("gemma2-2b", "gemma-2b", "qwen3-14b", "smollm-360m", "rwkv6-3b")
+PORTED = ("gemma2-2b", "gemma-2b", "qwen3-14b", "smollm-360m", "rwkv6-3b",
+          "jamba-1.5-large-398b")
 
 
 def _module(arch: str):
@@ -35,3 +38,11 @@ def get_config(arch: str):
 
 def get_smoke(arch: str):
     return _module(arch).smoke()
+
+
+def get_one_card(arch: str):
+    mod = _module(arch)
+    if not hasattr(mod, "one_card"):
+        raise KeyError(f"arch {arch!r} has no one-card cut; it runs whole "
+                       f"(get_config)")
+    return mod.one_card()

@@ -96,27 +96,40 @@ def scale_from_numpy(a, *, device=None) -> torch.Tensor:
     return t
 
 
-def _flatten(tree: dict, prefix: str, out: dict, index=None) -> None:
+_EXPERT_STACKS = ("w_gate", "w_up", "w_down")   # [E, ...] under "moe"
+
+
+def _flatten(tree: dict, prefix: str, out: dict, index=None,
+             held=None) -> None:
     for name, leaf in tree.items():
         key = f"{prefix}{name}"
         if isinstance(leaf, dict):
-            _flatten(leaf, key + ".", out, index)
+            _flatten(leaf, key + ".", out, index, held)
         else:
             a = np.asarray(leaf)
-            out[key] = tensor_from_numpy(a if index is None else a[index])
+            if index is not None:
+                a = a[index]
+            if (held is not None and name in _EXPERT_STACKS
+                    and prefix.endswith(".moe.")):
+                a = a[held[0]:held[1]]
+            out[key] = tensor_from_numpy(a)
 
 
 _TOP = ("embed", "final_norm", "lm_head", "prefix", "periods", "suffix")
 
 
-def params_from_jax(tree: dict) -> dict:
+def params_from_jax(tree: dict, *, held: tuple[int, int] | None = None
+                    ) -> dict:
     """The port's model state (names as in ``Model.state_dict()``) for
     the reference's ``init_params`` tree with numpy leaves.
 
     ``prefix[i]`` becomes ``layers.{i}``; the stacked ``periods/b{j}``
     arrays are cut along their leading ``n_periods`` axis into layers
     ``len(prefix) + p * len(period) + j``; ``suffix`` follows.  Values
-    and dtypes are kept (bfloat16 bit for bit)."""
+    and dtypes are kept (bfloat16 bit for bit).  With ``held = (lo,
+    hi)`` every MoE layer keeps only experts [lo, hi) of its stacked
+    ``w_gate`` / ``w_up`` / ``w_down`` (the router keeps all of them), the
+    state of a model whose ``MoEConfig.held`` is that range."""
     unknown = sorted(set(tree) - set(_TOP))
     if unknown:
         raise ValueError(f"params_from_jax: no port for {unknown}")
@@ -126,7 +139,7 @@ def params_from_jax(tree: dict) -> dict:
             state[name] = tensor_from_numpy(np.asarray(tree[name]))
     layer = 0
     for block in tree.get("prefix", []):
-        _flatten(block, f"layers.{layer}.", state)
+        _flatten(block, f"layers.{layer}.", state, held=held)
         layer += 1
     periods = tree.get("periods", {})
     names = sorted(periods, key=lambda b: int(b[1:]))
@@ -136,9 +149,10 @@ def params_from_jax(tree: dict) -> dict:
             first = next(iter(first.values()))
         for p in range(np.asarray(first).shape[0]):
             for name in names:
-                _flatten(periods[name], f"layers.{layer}.", state, index=p)
+                _flatten(periods[name], f"layers.{layer}.", state, index=p,
+                         held=held)
                 layer += 1
     for block in tree.get("suffix", []):
-        _flatten(block, f"layers.{layer}.", state)
+        _flatten(block, f"layers.{layer}.", state, held=held)
         layer += 1
     return state

@@ -29,7 +29,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"schedule_exec": 0, "rmsnorm": 0, "rmsnorm_reduce": 0,
-            "flash_attention": 0, "flash_attention_gather": 0, "wkv6": 0}
+            "flash_attention": 0, "flash_attention_gather": 0, "wkv6": 0,
+            "mamba_scan": 0}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None     # wall time of this process's build
@@ -57,6 +58,10 @@ _SIGNATURES = {
     # r/k/v dtype, w dtype, u dtype, r, k, v, w, u, y, r/k/v/w strides
     # over (b, t, h), B, T, H, N, stream
     "repro_wkv6": [_i] * 3 + [_vp] * 6 + [_i64] * 12 + [_i] * 4 + [_vp],
+    # xc (and B/C) dtype, dt dtype, xc, dt, B, C, A, D, y, xc/dt/B/C
+    # strides over (b, t), B, T, Di, S, lanes, stream
+    "repro_mamba_scan": [_i] * 2 + [_vp] * 7 + [_i64] * 8 + [_i] * 5
+                        + [_vp],
 }
 
 

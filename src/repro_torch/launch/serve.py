@@ -1,5 +1,5 @@
 """Serving launcher: greedy decode on one device, with a KV cache for
-attention layers and the O(1) recurrent state for rwkv layers.
+attention layers and the O(1) recurrent state for rwkv and mamba layers.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --batch 4 --prompt-len 32 --gen 16
@@ -7,12 +7,18 @@ attention layers and the O(1) recurrent state for rwkv layers.
         --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --one-card --batch 4 --prompt-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --smoke --device cpu
 
 The prompt is fed token by token through the decode step (teacher
-forced), then ``--gen`` tokens are generated greedily.  Weights and
-prompts are random, drawn from seeded generators on the device.  The
-default device is ``cuda``; without a card the launcher stops with an
-error instead of running on the CPU.
+forced), then ``--gen`` tokens are generated greedily.  ``--one-card``
+takes the config's cut for one card (jamba: one period, experts 0-7 of
+16; see its config file).  Weights and prompts are random, drawn from
+seeded generators on the device.  The default device is ``cuda``;
+without a card the launcher stops with an error instead of running on
+the CPU.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
     greedy tokens.  Returns (tokens [B, gen] int32, logits [B, P+gen-1,
     V]): step i's logits follow token i of the fed sequence.  The KV
     cache and the rwkv token-shift carries take the weights' dtype (bf16,
-    as in the reference); the rwkv state ``s`` is f32."""
+    as in the reference); the rwkv state ``s`` and the mamba state ``h``
+    are f32, the mamba conv window bf16."""
     B, P = prompts.shape
     max_len = P + gen
     cache = init_serve_cache(cfg, B, max_len, device=prompts.device,
@@ -55,7 +62,11 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--smoke", action="store_true")
+    size = ap.add_mutually_exclusive_group()
+    size.add_argument("--smoke", action="store_true")
+    size.add_argument("--one-card", action="store_true",
+                      help="the config's cut for one card (jamba-1.5-"
+                           "large-398b: one period, experts 0-7 of 16)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -78,8 +89,12 @@ def main(argv=None):
             f"--device {args.device}: no CUDA device is available; pass "
             f"--device cpu to run the plain versions on the CPU")
 
-    cfg = (configs.get_smoke(args.arch) if args.smoke
-           else configs.get_config(args.arch))
+    try:
+        cfg = (configs.get_smoke(args.arch) if args.smoke
+               else configs.get_one_card(args.arch) if args.one_card
+               else configs.get_config(args.arch))
+    except KeyError as e:
+        ap.error(e.args[0])
     g = torch.Generator(device=device)
     g.manual_seed(0)
     params = M.init_params(cfg, generator=g, device=device)

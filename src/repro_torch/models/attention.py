@@ -94,6 +94,14 @@ def core_attention(q, k, v, mask, *, cap=None, scale=None):
 
 CHUNK_THRESHOLD = 8192     # beyond this, q is processed in chunks
 CHUNK_Q = 2048
+# ... and so are calls whose [B, H, S, S] f32 scores would hold more
+# elements than this (jamba's 64 heads at S = 8192: 17 GB), in chunks of
+# at most CHUNK_SCORES / 4 score elements
+CHUNK_SCORES = 1 << 30
+
+
+def _chunk_rows(B: int, H: int, Sk: int) -> int:
+    return max(1, min(CHUNK_Q, (CHUNK_SCORES // 4) // (B * H * Sk)))
 
 
 def _chunked_core(q, k, v, mpos, *, causal, window, cap, scale=None,
@@ -128,9 +136,10 @@ def forward(p: Attention, cfg: AttnConfig, x, *, positions, window=None,
     if use_kernel and cfg.causal:
         out = attn_ops.flash_attention(q, k, v, causal=True, window=win,
                                        softcap=cfg.softcap)
-    elif S > CHUNK_THRESHOLD:
+    elif S > CHUNK_THRESHOLD or B * cfg.n_heads * S * S > CHUNK_SCORES:
         out = _chunked_core(q, k, v, positions, causal=cfg.causal,
-                            window=win, cap=cfg.softcap)
+                            window=win, cap=cfg.softcap,
+                            chunk=_chunk_rows(B, cfg.n_heads, S))
     else:
         mask = attn_mask(positions, positions, causal=cfg.causal,
                          window=win)

@@ -1,24 +1,23 @@
 """Residual block assembly: (norm -> mixer -> [norm] -> residual) +
 (norm -> ff -> [norm] -> residual).
 
-The port runs the ``attn`` and ``rwkv`` mixers and the ``mlp`` and
-``cmix`` feed-forwards; the others raise ``NotImplementedError`` until
-their modules are ported (ROADMAP.md).
+The port runs the ``attn``, ``rwkv`` and ``mamba`` mixers and the
+``mlp``, ``cmix`` and ``moe`` feed-forwards; the others raise
+``NotImplementedError`` until their modules are ported (ROADMAP.md).
+The MoE prefill takes the dense dispatch and decode the capacity
+dispatch (factor 2), as in the reference.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models import attention, mlp, rwkv
+from repro_torch.models import attention, mamba, mlp, moe, rwkv
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.config import BlockSpec, ModelConfig
 
 _NOT_PORTED = {
     "mla": "the MLA mixer (deepseek-v3; ROADMAP.md Queue 1 item 10)",
-    "mamba": "the mamba mixer (jamba; ROADMAP.md Queue 1 item 10, kernel "
-             "Queue 2 item 6)",
-    "moe": "the MoE feed-forward (ROADMAP.md Queue 1 item 10)",
     "cross": "cross-attention (whisper; ROADMAP.md Queue 1 item 10)",
 }
 
@@ -37,11 +36,11 @@ def _norm_param(cfg: ModelConfig, d: int, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer: ``norm_mixer``, the mixer (``attn`` or ``rwkv``),
-    ``norm_mixer_post`` (with post-block norms), ``norm_ff``, the
-    feed-forward (``mlp`` or ``cmix``), ``norm_ff_post``.  With a
-    ``generator`` the weights take the reference's init distributions;
-    without one they are left uninitialised."""
+    """One layer: ``norm_mixer``, the mixer (``attn``, ``rwkv`` or
+    ``mamba``), ``norm_mixer_post`` (with post-block norms), ``norm_ff``,
+    the feed-forward (``mlp``, ``cmix`` or ``moe``), ``norm_ff_post``.
+    With a ``generator`` the weights take the reference's init
+    distributions; without one they are left uninitialised."""
 
     def __init__(self, spec: BlockSpec, cfg: ModelConfig, *, device=None,
                  generator: torch.Generator | None = None):
@@ -59,6 +58,11 @@ class Block(nn.Module):
                          if generator is None else
                          rwkv.init(cfg.rwkv, d, generator=generator,
                                    device=device))
+        elif spec.mixer == "mamba":
+            self.mamba = (mamba.Mamba(cfg.mamba, d, device=device)
+                          if generator is None else
+                          mamba.init(cfg.mamba, d, generator=generator,
+                                     device=device))
         if cfg.post_block_norm:
             self.norm_mixer_post = _norm_param(cfg, d, device)
         if spec.ff != "none":
@@ -76,6 +80,11 @@ class Block(nn.Module):
                          rwkv.channel_mix_init(d, cfg.d_ff,
                                                generator=generator,
                                                device=device))
+        elif spec.ff == "moe":
+            self.moe = (moe.MoE(cfg.moe, d, device=device)
+                        if generator is None else
+                        moe.init(cfg.moe, d, generator=generator,
+                                 device=device))
 
 
 def _norm(cfg: ModelConfig, x, w):
@@ -84,12 +93,20 @@ def _norm(cfg: ModelConfig, x, w):
 
 def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache=None):
     """The feed-forward sublayer; with ``cache`` (decode) the channel
-    mix reads and updates its token-shift carry ``cache["cmix"]``."""
+    mix reads and updates its token-shift carry ``cache["cmix"]`` and the
+    MoE takes the capacity dispatch."""
     if spec.ff == "none":
         return x
     h = _norm(cfg, x, p.norm_ff)
     if spec.ff == "mlp":
         h = mlp.forward(p.mlp, h, cfg.mlp_act)
+    elif spec.ff == "moe" and cache is None:
+        h = moe.forward(p.moe, cfg.moe, h, cfg.mlp_act)
+    elif spec.ff == "moe":
+        # capacity dispatch: dense-dispatch FLOPs scale with E, absurd
+        # for one-token decode
+        h = moe.forward_dropless(p.moe, cfg.moe, h, cfg.mlp_act,
+                                 capacity_factor=2.0)
     elif cache is None:
         h = rwkv.channel_mix(p.cmix, h)
     else:
@@ -109,6 +126,9 @@ def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
                               use_kernel=use_kernel)
     elif spec.mixer == "rwkv":
         h = rwkv.time_mix(p.rwkv, cfg.rwkv, h, use_kernel=use_kernel)
+    elif spec.mixer == "mamba":
+        h = mamba.forward(p.mamba, cfg.mamba, h, eps=cfg.norm_eps,
+                          use_kernel=use_kernel)
     else:
         h = torch.zeros_like(h)
     if cfg.post_block_norm:
@@ -123,10 +143,12 @@ def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
 
 def init_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
                *, device=None, dtype=torch.bfloat16) -> dict:
-    """The layer's decode cache: ``attn`` (k/v in ``dtype``), or the
-    ``rwkv`` state (``s`` f32, carries in ``dtype``) and, for a channel
-    mix, its own carry ``cmix["x_cm"]`` in ``dtype``, as the reference
-    keeps ``cache["rwkv"]`` and ``cache["cmix"]`` apart."""
+    """The layer's decode cache: ``attn`` (k/v in ``dtype``), the
+    ``rwkv`` state (``s`` f32, carries in ``dtype``) or the ``mamba``
+    state (``h`` f32, the conv window in bf16, as the reference keeps
+    it) and, for a channel mix, its own carry ``cmix["x_cm"]`` in
+    ``dtype``, as the reference keeps ``cache["rwkv"]`` and
+    ``cache["cmix"]`` apart."""
     check_supported(spec)
     c = {}
     if spec.mixer == "attn":
@@ -135,6 +157,9 @@ def init_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
     elif spec.mixer == "rwkv":
         c["rwkv"] = rwkv.init_state(cfg.rwkv, batch, cfg.d_model,
                                     device=device, dtype=dtype)
+    elif spec.mixer == "mamba":
+        c["mamba"] = mamba.init_state(cfg.mamba, batch, cfg.d_model,
+                                      device=device)
     if spec.ff == "cmix":
         c["cmix"] = {"x_cm": torch.zeros((batch, cfg.d_model),
                                          device=device, dtype=dtype)}
@@ -151,6 +176,10 @@ def decode(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache: dict):
     elif spec.mixer == "rwkv":
         h, cache["rwkv"] = rwkv.decode_time_mix(p.rwkv, cfg.rwkv, h,
                                                 cache["rwkv"])
+    elif spec.mixer == "mamba":
+        h, cache["mamba"] = mamba.decode_step(p.mamba, cfg.mamba, h,
+                                              cache["mamba"],
+                                              eps=cfg.norm_eps)
     else:
         h = torch.zeros_like(h)
     if cfg.post_block_norm:

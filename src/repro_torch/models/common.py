@@ -82,11 +82,17 @@ def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal=True,
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator,
-                scale: float | None = None) -> torch.Tensor:
+                scale: float | None = None, *,
+                fan_in: int | None = None) -> torch.Tensor:
     """Fill ``w`` in place with normal * fan_in^-1/2 (or ``scale``),
     drawn in f32 from ``generator`` on ``w``'s device and rounded to
-    ``w``'s dtype (bf16 in the models)."""
-    fan_in = w.shape[0] if w.ndim >= 2 else 1
+    ``w``'s dtype (bf16 in the models).  ``fan_in`` defaults to
+    ``w.shape[0]``, as the reference's ``dense_init`` takes it; a
+    stacked tensor that holds only some of the reference's rows (a
+    device's share of the experts) passes the reference's count, so the
+    share draws at the published scale."""
+    if fan_in is None:
+        fan_in = w.shape[0] if w.ndim >= 2 else 1
     s = scale if scale is not None else fan_in ** -0.5
     with torch.no_grad():
         w.copy_(torch.randn(w.shape, generator=generator, device=w.device,

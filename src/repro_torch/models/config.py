@@ -52,6 +52,18 @@ class MoEConfig:
     router: Literal["softmax", "sigmoid"] = "softmax"
     route_scale: float = 1.0
     norm_topk: bool = True              # renormalize top-k weights
+    # experts [lo, hi) held by this device (expert parallelism: the layer
+    # routes over all n_experts and adds only its own experts' part);
+    # None holds all of them.  Not a field of the reference, whose
+    # single-device layer holds every expert.
+    held: tuple[int, int] | None = None
+
+    def held_range(self) -> tuple[int, int]:
+        lo, hi = self.held if self.held is not None else (0, self.n_experts)
+        if not 0 <= lo < hi <= self.n_experts:
+            raise ValueError(f"held experts [{lo}, {hi}) outside "
+                             f"[0, {self.n_experts})")
+        return lo, hi
 
 
 @dataclasses.dataclass(frozen=True)

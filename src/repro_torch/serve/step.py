@@ -1,5 +1,5 @@
 """Serving steps: batched prefill + decode on a cache (the KV cache of
-attention layers, the O(1) recurrent state of rwkv layers).
+attention layers, the O(1) recurrent state of rwkv and mamba layers).
 
 One device, no mesh and no jit: the steps are plain functions over the
 port's ``Model``.  Decode samples greedily (argmax), like the
@@ -38,15 +38,17 @@ def _check(opts: ServeOptions) -> None:
 def init_serve_cache(cfg, batch: int, max_len: int, *, device=None,
                      dtype=torch.bfloat16):
     """The decode cache of every layer: k/v in ``dtype``; for rwkv the
-    state ``s`` in f32 and the token-shift carries in ``dtype``."""
+    state ``s`` in f32 and the token-shift carries in ``dtype``; for
+    mamba the state ``h`` in f32 and the conv window in bf16."""
     return M.init_cache(cfg, batch, max_len, device=device, dtype=dtype)
 
 
 def make_prefill_step(cfg, opts: ServeOptions) -> Callable:
     """(params, tokens [B, S]) -> logits [B, S, V]: the full-sequence
     forward used for prompt processing; with ``opts.use_kernel`` each
-    attention layer runs the flash kernel and each rwkv layer the wkv6
-    kernel."""
+    attention layer runs the flash kernel, each rwkv layer the wkv6
+    kernel and each mamba layer the selective-scan kernel.  MoE layers
+    take the dense dispatch."""
     _check(opts)
 
     @torch.no_grad()
@@ -59,7 +61,9 @@ def make_prefill_step(cfg, opts: ServeOptions) -> Callable:
 def make_decode_step(cfg, opts: ServeOptions) -> Callable:
     """(params, cache, tokens [B, 1]) -> (next_tokens [B, 1], cache',
     logits [B, V]).  The step's logits come back too, so a caller can
-    check them without a second forward."""
+    check them without a second forward.  MoE layers take the capacity
+    dispatch (factor 2), which drops a (token, slot) pair once its
+    expert's bucket is full."""
     _check(opts)
 
     @torch.no_grad()

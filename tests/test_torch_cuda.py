@@ -17,7 +17,9 @@ tolerances of their plain version, ``3e-5`` in f32 and ``2e-2`` in bf16
 also rounds the attention weights to bf16), and the gather kernel's
 dead rows are exact zeros; the wkv6 kernel is within the reference's
 kernel tolerances of its plain version, ``2e-5`` with f32 inputs and
-``2e-2`` with bf16 ones (another order of the f32 sums over the head).
+``2e-2`` with bf16 ones (another order of the f32 sums over the head);
+so is the selective-scan kernel (another order of the f32 sum over the
+states, fused multiply-adds, and exp2 on dt * A log2 e).
 """
 import numpy as np
 import pytest
@@ -38,6 +40,10 @@ from repro_torch.kernels.attention.kernel import (flash_attention_bshd,
 from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_2d, rmsnorm_plain,
                                                 rmsnorm_reduce_2d,
                                                 rmsnorm_reduce_plain)
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan.kernel import (selective_scan_bdt,
+                                                   selective_scan_plain)
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.kernel import wkv6_bthn, wkv6_plain
 from repro_torch.kernels.wkv6.ref import wkv6_ref
@@ -304,3 +310,110 @@ def test_wkv6_op_grad_and_errors(cuda_device):
     with pytest.raises(TypeError, match="dtype"):
         wkv6_bthn(*_wkv_inputs(rng, cuda_device, 1, 8, 1, 16, torch.float16,
                                torch.float32))
+
+
+SCAN_TOL = WKV_TOL
+
+
+def _scan_inputs(rng, device, B, T, Di, S, x=torch.float32, dt=torch.float32):
+    """As the reference's sweep draws them: xc, B, C normal (in ``x``), dt
+    = 0.1 |normal| (in ``dt``), A = -exp(normal), D normal."""
+    def t(shape, dtype, f=lambda a: a):
+        return torch.from_numpy(f(rng.standard_normal(shape)).astype(
+            np.float32)).to(device, dtype)
+    return (t((B, T, Di), x), t((B, T, Di), dt, lambda a: np.abs(a) * 0.1),
+            t((B, T, S), x), t((B, T, S), x),
+            t((Di, S), torch.float32, lambda a: -np.exp(a)),
+            t((Di,), torch.float32))
+
+
+@pytest.mark.parametrize("x,dt", [(torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.bfloat16),
+                                  (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("B,T,Di,S", [(1, 16, 8, 4), (2, 64, 32, 8),
+                                      (1, 128, 64, 16), (2, 48, 24, 8),
+                                      (1, 200, 300, 16), (2, 33, 130, 4),
+                                      (3, 1, 16, 8), (4, 40, 16384, 16),
+                                      (2, 24, 16384, 8)])
+def test_mamba_scan_kernel_matches_plain(cuda_device, x, dt, B, T, Di, S):
+    """The reference's sweep shapes, a T that is no multiple of the
+    kernel's 16-step chunk, a Di that is no multiple of its CTA's
+    channels, S of 4, 8 and 16, and 4, 2 and 1 lanes per channel (the
+    last two shapes); f32, bf16 and the f32 model's mix (bf16 dt)."""
+    rng = np.random.default_rng(T + Di + S)
+    args = _scan_inputs(rng, cuda_device, B, T, Di, S, x, dt)
+    n0 = cuda.LAUNCHES["mamba_scan"]
+    got = selective_scan_bdt(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["mamba_scan"] == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (B, T, Di)
+    torch.testing.assert_close(got, selective_scan_plain(*args),
+                               **SCAN_TOL[torch.float32 if x == dt ==
+                                          torch.float32 else torch.bfloat16])
+
+
+def test_mamba_scan_kernel_reads_strides(cuda_device):
+    """xc and dt as views of one [B, T, 2 Di] tensor, B and C as views of
+    one [B, T, R + 2 S] projection, give what their contiguous copies
+    give, bit for bit."""
+    rng = np.random.default_rng(23)
+    B, T, Di, S = 2, 70, 96, 16
+    xd = torch.from_numpy(rng.standard_normal((B, T, 2 * Di)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    xc, dt = xd[..., :Di], xd[..., Di:].abs() * 0.1
+    proj = torch.from_numpy(rng.standard_normal((B, T, 8 + 2 * S)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    bm, cm = proj[..., 8:8 + S], proj[..., 8 + S:]
+    *_, A, D = _scan_inputs(rng, cuda_device, B, T, Di, S)
+    got = selective_scan_bdt(xc, dt, bm, cm, A, D)
+    want = selective_scan_bdt(xc.contiguous(), dt, bm.contiguous(),
+                              cm.contiguous(), A, D)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, selective_scan_plain(xc, dt, bm, cm, A,
+                                                         D),
+                               **SCAN_TOL[torch.bfloat16])
+
+
+def test_mamba_scan_op_grad_and_errors(cuda_device):
+    rng = np.random.default_rng(24)
+    args = _scan_inputs(rng, cuda_device, 1, 32, 16, 8)
+    xg = args[0].clone().requires_grad_()
+    scan_ops.selective_scan(xg, *args[1:]).sum().backward()
+    xr = args[0].clone().requires_grad_()
+    selective_scan_ref(xr, *args[1:])[0].sum().backward()
+    torch.testing.assert_close(xg.grad, xr.grad, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="state size"):
+        selective_scan_bdt(*_scan_inputs(rng, cuda_device, 1, 8, 16, 12))
+    with pytest.raises(TypeError, match="dtype"):
+        selective_scan_bdt(*_scan_inputs(rng, cuda_device, 1, 8, 16, 8,
+                                         x=torch.float16))
+
+
+def test_mamba_scan_failed_launch_raises(cuda_device, monkeypatch):
+    """A launch the CUDA runtime refuses raises; nothing falls back to
+    the plain version and nothing is counted."""
+    class Refusing:
+        def repro_mamba_scan(self, *args):
+            return 1                       # cudaErrorInvalidValue
+
+    args = _scan_inputs(np.random.default_rng(25), cuda_device, 1, 8, 16, 8)
+    monkeypatch.setattr(cuda, "library", lambda: Refusing())
+    n0 = cuda.LAUNCHES["mamba_scan"]
+    with pytest.raises(RuntimeError, match="mamba_scan: cudaError_t 1"):
+        scan_ops.selective_scan(*args)
+    assert cuda.LAUNCHES["mamba_scan"] == n0
+
+
+def test_failed_build_raises(cuda_device, monkeypatch, tmp_path):
+    """A source nvcc refuses makes the first launch raise (no library is
+    loaded, nothing falls back)."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "broken.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(cuda, "CSRC", src)
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda, "_LIB", None)
+    args = _scan_inputs(np.random.default_rng(26), cuda_device, 1, 8, 16, 8)
+    with pytest.raises(RuntimeError, match="nvcc failed for broken.cu"):
+        scan_ops.selective_scan(*args)
+    assert cuda._LIB is None

@@ -42,7 +42,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as launcher
 from repro_torch.models import attention, blocks
 from repro_torch.models import model as M
-from repro_torch.models.config import BlockSpec
+from repro_torch.models.config import BlockSpec, MoEConfig
 from repro_torch.serve import (ServeOptions, init_serve_cache,
                                make_decode_step, make_prefill_step)
 
@@ -254,10 +254,15 @@ def test_unported_archs_raise_key_error(arch):
 def test_unported_modules_raise_not_implemented():
     cfg = configs.get_smoke("qwen3-14b")
     for spec in (BlockSpec("mla", "mlp"),
-                 BlockSpec("mamba", "mlp"), BlockSpec("attn", "moe"),
                  BlockSpec("attn", "mlp", cross=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             blocks.Block(spec, cfg, device="meta")
+    # the MoE block runs softmax routing (jamba); deepseek's sigmoid
+    # routing with shared experts waits
+    sigmoid = dataclasses.replace(cfg, moe=MoEConfig(
+        8, 2, 16, n_shared=1, router="sigmoid", route_scale=2.5))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        blocks.Block(BlockSpec("attn", "moe"), sigmoid, device="meta")
     for attn_cfg in (dataclasses.replace(cfg.attn, cross=True),
                      dataclasses.replace(cfg.attn,
                                          mrope_sections=(2, 3, 3))):
