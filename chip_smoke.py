@@ -9,20 +9,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              into ``build/repro_torch/`` (one nvcc per source, in
              parallel) and print the build time;
 2. parity  — every REGISTRY schedule on four topologies, random floats,
-             slots [4, 33] (a ragged tile edge): the transport kernel
-             bitwise against its plain PyTorch version (f32, bf16) and
-             against the numpy oracle ``run_reference`` (f32); chunks=2
-             bit-identical; one launch per run.  Then both flash-
-             attention kernels against their plain version on random
-             floats: head_dim 64/128/256, GQA groups 1/2/8, causal,
-             window and softcap alone and together, non-causal, f32 and
-             bf16 (the gather kernel with a random permutation and 1/8
-             of the rows at -1, which must come out exact zeros);
+             at slots [4, 33] (bf16 rows, and every row at chunks=2,
+             are no whole 16 B: the ragged path), [4, 64] (the aligned
+             TMA path) and [2, 65536] (more column tiles than the
+             persistent grid has CTAs): the transport kernel bitwise
+             against its plain PyTorch version (f32, bf16) and, at the
+             two small shapes, against the numpy oracle
+             ``run_reference`` (f32); chunks=2 bit-identical; one launch
+             per run.  Then both flash-attention kernels against their
+             plain version on random floats: head_dim 64/128/256, GQA
+             groups 1/2/8, causal, window and softcap alone and
+             together, non-causal, f32 and bf16 (the gather kernel with
+             a random permutation and 1/8 of the rows at -1, which must
+             come out exact zeros);
 3. main    — launch counters reset, then the collective path once at
              sizes users run: Topology -> selector -> builder ->
              executor -> ``KernelTransport.run_global`` for a 25 MiB-
              per-rank gradient allreduce on 8 and 16 ranks and a MoE
-             alltoall dispatch, and the fused ``rmsnorm_allreduce`` /
+             alltoall dispatch (each printed with the transport kernel's
+             tile, buffers, CTAs per SM, grid and path, which must be
+             the aligned TMA path), and the fused ``rmsnorm_allreduce`` /
              plain ``rmsnorm`` ops at qwen3-14b and gemma2-2b widths;
              counters read; every output checked against its plain
              version and the collective's meaning;
@@ -171,6 +177,14 @@ def main() -> int:
 # ---------------------------------------------------------------------------
 
 
+PARITY_SLOTS = [
+    # (per-rank slot shape, what it exercises, checked against the oracle)
+    ((4, 33), "ragged path in bf16 and at chunks=2", True),
+    ((4, 64), "aligned TMA path", True),
+    ((2, 1 << 16), "aligned, more column tiles than CTAs", False),
+]
+
+
 def parity(torch, dev) -> None:
     from repro_torch.core.algorithms import REGISTRY
     from repro_torch.core.kernel_lowering import (get_kernel_exec,
@@ -180,46 +194,61 @@ def parity(torch, dev) -> None:
                                            torus_topology)
     from repro_torch.core.transport import SimTransport
 
-    t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    checked = 0
-    for topo in (flat_topology(8), Topology(8, 4), torus_topology(2, 2, 2),
-                 torus_topology(2, 4, 2)):
-        n = topo.nranks
-        for coll, algos in REGISTRY.items():
-            for name, builder in algos.items():
-                try:
-                    sched = builder(topo)
-                except NotApplicable:
-                    continue
-                label = f"{topo.fingerprint()} {coll}.{name}"
-                buf = rng.standard_normal((n, sched.num_slots, 4, 33))
-                buf = buf.astype(np.float32)
-                buf.reshape(-1)[::7] = -0.0
-                want = SimTransport(n).run_reference(sched, buf)
-                kex = get_kernel_exec(sched, topo=topo)
-                for dtype, itype in ((torch.float32, torch.int32),
-                                     (torch.bfloat16, torch.int16)):
-                    g = torch.from_numpy(buf).to(dev, dtype)
-                    before = kex.launches
-                    got = kex.run(g)
-                    torch.cuda.synchronize()
-                    _require(kex.launches == before + 1,
-                             f"{label}: not one launch per run")
-                    plain = schedule_exec_plain(kex.ex, g)
-                    _require(torch.equal(got.view(itype), plain.view(itype)),
-                             f"{label} {dtype}: kernel != plain version")
-                    _require(torch.equal(kex.run(g, chunks=2).view(itype),
-                                         got.view(itype)),
-                             f"{label} {dtype}: chunks=2 not bit-identical")
-                    if dtype == torch.float32:
-                        _require(got.cpu().numpy().tobytes()
-                                 == want.tobytes(),
-                                 f"{label}: kernel != run_reference")
-                checked += 1
-    torch.cuda.synchronize()
-    print(f"parity: {checked} schedules x (f32, bf16) bitwise, "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for slot, what, oracle in PARITY_SLOTS:
+        t0 = time.perf_counter()
+        checked = 0
+        paths = set()
+        for topo in (flat_topology(8), Topology(8, 4),
+                     torus_topology(2, 2, 2), torus_topology(2, 4, 2)):
+            n = topo.nranks
+            for coll, algos in REGISTRY.items():
+                for name, builder in algos.items():
+                    try:
+                        sched = builder(topo)
+                    except NotApplicable:
+                        continue
+                    label = f"{topo.fingerprint()} {coll}.{name} {slot}"
+                    shape = (n, sched.num_slots) + slot
+                    if oracle:
+                        buf = rng.standard_normal(shape).astype(np.float32)
+                        buf.reshape(-1)[::7] = -0.0
+                        want = SimTransport(n).run_reference(sched, buf)
+                        buf = torch.from_numpy(buf).to(dev)
+                    else:            # large: drawn on the card, no oracle
+                        buf = torch.randn(shape, generator=gen, device=dev)
+                        buf.view(-1)[::7] = -0.0
+                        want = None
+                    kex = get_kernel_exec(sched, topo=topo)
+                    for dtype, itype in ((torch.float32, torch.int32),
+                                         (torch.bfloat16, torch.int16)):
+                        g = buf.to(dtype)
+                        before = kex.launches
+                        got = kex.run(g)
+                        torch.cuda.synchronize()
+                        _require(kex.launches == before + 1,
+                                 f"{label}: not one launch per run")
+                        paths.add(kex.last_launch["path"])
+                        plain = schedule_exec_plain(kex.ex, g)
+                        _require(torch.equal(got.view(itype),
+                                             plain.view(itype)),
+                                 f"{label} {dtype}: kernel != plain version")
+                        _require(torch.equal(kex.run(g, chunks=2).view(itype),
+                                             got.view(itype)),
+                                 f"{label} {dtype}: chunks=2 not "
+                                 f"bit-identical")
+                        if want is not None and dtype == torch.float32:
+                            _require(got.cpu().numpy().tobytes()
+                                     == want.tobytes(),
+                                     f"{label}: kernel != run_reference")
+                    checked += 1
+        torch.cuda.synchronize()
+        print(f"parity: slots {list(slot)} ({what}, ran {sorted(paths)}): "
+              f"{checked} schedules x (f32, bf16) bitwise"
+              f"{', f32 = run_reference' if oracle else ''}, "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +283,7 @@ def main_path(torch, dev) -> list[dict]:
     from repro_torch import cuda
     from repro_torch.core import selector
     from repro_torch.core.algorithms import REGISTRY
+    from repro_torch.core.kernel_lowering import get_kernel_exec
     from repro_torch.core.transport import KernelTransport
     from repro_torch.kernels.rmsnorm import ops
 
@@ -318,6 +348,17 @@ def main_path(torch, dev) -> list[dict]:
              "transport: not one launch per run")
     for c in cases:
         c["launches"] = launches[c["kernel"]]
+        if c["kernel"] == "schedule_exec":
+            run = get_kernel_exec(c["sched"], topo=c["topo"]).last_launch
+            c["launch"] = run
+            print(f"transport | {c['label']}: tile {run['tile']} columns, "
+                  f"{run['buffers']} buffers, {run['ctas_per_sm']} CTAs/SM, "
+                  f"grid {run['grid']}, path {run['path']}, rows loaded "
+                  f"{run['rows_loaded']} of {run['rows']}, {run['copies']} "
+                  f"TMA boxes an item, design floor {run['floor_bytes']} B",
+                  flush=True)
+            _require(run["path"] == "aligned TMA",
+                     f"{c['label']}: took the {run['path']} path")
         check_output(torch, c)
     return cases
 
@@ -505,7 +546,10 @@ def timing(torch, cases) -> list[dict]:
             ex = get_kernel_exec(c["sched"], topo=c["topo"]).ex
             ops = _schedule_adds(ex, gbuf[0, 0].numel())
             if c["coll"] == "allreduce":
-                library = "gbuf.sum(0, keepdim=True).expand_as(gbuf)"
+                # expand_as returns a view: the call writes one rank's
+                # result, 1/n of what the kernel writes
+                library = ("gbuf.sum(0, keepdim=True).expand_as(gbuf) "
+                           "(writes one rank's result: expand_as is a view)")
                 library_ms = time_ms(
                     torch, lambda g: g.sum(0, keepdim=True).expand_as(g),
                     gbuf)
@@ -514,10 +558,14 @@ def timing(torch, cases) -> list[dict]:
                 library_ms = time_ms(
                     torch, lambda g: g[:, :n].transpose(0, 1).contiguous(),
                     gbuf)
-            # a copy of the whole buffer: what any transport pays at least
+            # a copy of the whole buffer, and the design floor: every row
+            # that reaches the output read once, every row written once
             extra["copy_floor_ms"] = time_ms(torch, lambda g: g.clone(),
                                              gbuf)
+            extra["floor_ms"] = (c["launch"]["floor_bytes"]
+                                 / HBM_BYTES_PER_S * 1e3)
             extra["rounds"] = ex.rounds_after
+            extra["launch"] = c["launch"]
         else:
             x, scale = args
             d = x.shape[-1]

@@ -7,20 +7,21 @@ lowering runs every round of a schedule inside one kernel on the
 of the reference's Pallas lowering.  The routing program is the
 executor's baked numpy tables (``_ExecRound.src/dst/g_safe/g_mask/
 t_safe/t_mask`` and the folded ``local_pre``/``local_post``), packed
-once per (``CompiledExec``, device) into int32 device tables:
+once per ``CompiledExec`` into one int32 table (``_pack_tables``): the
+row each work row loads (-1 for a row whose input never reaches the
+output), the row each output row drains from, the stage-in and drain
+as TMA boxes of 2^k consecutive rows, and per round its flags and its
+live landings as (src row, dst row) pairs.  A round is
+*direct* when no landing row is also a gather row (it lands straight
+from the buffer, without a stage) and *ordered* when a landing row
+repeats (its landings keep (edge, position) order).
 
-  * ``meta [R, 5]``  per round: edge count m, width k, reduce flag, and
-    the offsets of its edges and positions in the arrays below;
-  * ``esrc, edst``   per edge: source and destination rank;
-  * ``g, t``         per (edge, position): gather row and landing row,
-    ``-1`` where masked (send zeros / drop on arrival);
-  * ``pre, post``    ``[nranks * num_slots]`` slot permutations, or none.
-
-Rows never mix, so the kernel gives each CTA a column tile of the
-flattened slot payload across all ``nranks * num_slots`` slots and runs
-every round for it in shared memory.  ``chunks > 1`` splits the slot
-row axis into column ranges of the same launch (bit-identical; still
-one launch), the row decomposition ``Transport.run_chunked`` relies on.
+Rows never mix, so the kernel's persistent CTAs walk column tiles of
+the flattened slot payload across all ``nranks * num_slots`` rows and
+run every round for a tile in shared memory.  ``chunks > 1`` splits the
+slot row axis into column ranges of the same launch (bit-identical;
+still one launch), the row decomposition ``Transport.run_chunked``
+relies on.
 
 On a CPU tensor the wrapper runs ``schedule_exec_plain``, the kernel's
 plain PyTorch version with the same order of operations; on a CUDA
@@ -28,7 +29,9 @@ tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -39,95 +42,217 @@ from repro_torch.core.schedule import CommSchedule, validate_schedules_enabled
 from repro_torch.core.topology import Topology
 
 SMEM_MAX = 232448          # bytes of shared memory one CTA may use (H100)
-SMEM_TARGET = 72 * 1024    # preferred: three CTAs resident per SM
-TILES = (1024, 512, 256, 128, 64, 32)
-THREADS = 256
+SMEM_TARGET = 75 * 1024    # preferred: three CTAs resident per SM
+BAR_BYTES = 64             # the kernel's mbarriers
+TILES = (256, 128, 64, 32)
+MIN_ROW_BYTES = 128        # a TMA box starts 128-byte aligned
+WIDE_ROW_BYTES = 256       # narrower rows cost device-memory rate
+MAX_BUFS = 4
+MAX_BOX_ROWS = 256         # a TMA box spans at most 256 rows
+REDUCE, DIRECT, ORDERED = 1, 2, 4   # round flags in the kernel's meta
+
+
+def _round_pairs(rnd, s: int) -> tuple[np.ndarray, np.ndarray]:
+    """A compiled round's live landings as (src row, dst row) arrays in
+    (edge, position) order; a row is ``rank * s + slot``, and the src
+    row is -1 where the gather is masked (the landing takes +0)."""
+    e, j = np.nonzero(rnd.t_mask)
+    dst = rnd.dst[e] * s + rnd.t_safe[e, j]
+    src = np.where(rnd.g_mask[e, j], rnd.src[e] * s + rnd.g_safe[e, j], -1)
+    return src.astype(np.int64), dst.astype(np.int64)
+
+
+def _boxes(source: np.ndarray) -> list[tuple[int, int, int]]:
+    """Copies of whole rows as TMA boxes: target row ``i`` takes source
+    row ``source[i]`` (none where it is -1).  Runs of consecutive targets
+    with consecutive sources split into boxes of 2^k rows (largest
+    first, at most ``MAX_BOX_ROWS``); returns (target row, source row,
+    k) per box."""
+    ops = []
+    i, n = 0, len(source)
+    while i < n:
+        if source[i] < 0:
+            i += 1
+            continue
+        j = i + 1
+        while j < n and source[j] == source[j - 1] + 1:
+            j += 1
+        while i < j:
+            k = min(j - i, MAX_BOX_ROWS).bit_length() - 1
+            ops.append((i, int(source[i]), k))
+            i += 1 << k
+    return ops
 
 
 def _pack_tables(ex: CompiledExec) -> dict:
-    """The executor's compiled rounds as flat int32 numpy tables."""
-    meta, esrc, edst, g, t = [], [], [], [], []
-    eo = po = 0
-    stage_rows = 1
+    """The executor's compiled rounds as the kernel's int32 table ``tab``
+    (layout in ``csrc/schedule_exec.cu``) and what the host needs
+    beside it:
+
+      * ``direct [R]``: no landing row of the round is also one of its
+        gather rows, so it lands straight from the buffer (else it
+        gathers into the stage first);
+      * ``ordered [R]``: some landing row repeats within the round, so
+        its landings run in (edge, position) order (else all at once);
+      * ``load [n*s]``: the work row's input reaches the output.  A row
+        whose first access in round order is a ``set`` landing is
+        cleared: the kernel never loads it;
+      * ``loads`` / ``stores``: the stage-in and the drain as TMA boxes
+        (``_boxes``), with the box heights each uses (``*_classes``,
+        bit k for 2^k rows);
+      * ``stage_rows``: the largest hazard round's landing count, the
+        stage the kernel sizes (0 when every round is direct).
+    """
+    n, s = ex.nranks, ex.num_slots
+    ns = n * s
+    base = np.arange(n, dtype=np.int64)[:, None] * s
+    src_row = (np.arange(ns, dtype=np.int64) if ex._pre is None
+               else (base + ex._pre).reshape(-1))
+    post_row = (np.arange(ns, dtype=np.int64) if ex._post is None
+                else (base + ex._post).reshape(-1))
+    # first access per row: 0 none yet, 1 read (live), 2 set (dead)
+    first = np.zeros(ns, np.int8)
+    meta, pairs, rounds, direct, ordered = [], [], [], [], []
+    stage_rows = off = 0
     for rnd in ex._rounds:
-        m, k = len(rnd.src), rnd.k
-        meta.append((m, k, int(rnd.reduce), eo, po))
-        esrc.append(rnd.src)
-        edst.append(rnd.dst)
-        g.append(np.where(rnd.g_mask, rnd.g_safe, -1).reshape(-1))
-        t.append(np.where(rnd.t_mask, rnd.t_safe, -1).reshape(-1))
-        eo += m
-        po += m * k
-        stage_rows = max(stage_rows, m * k)
+        src, dst = _round_pairs(rnd, s)
+        gathered = src[src >= 0]
+        is_direct = not np.isin(dst, gathered).any()
+        is_ordered = len(np.unique(dst)) != len(dst)
+        reads = np.concatenate([gathered, dst]) if rnd.reduce else gathered
+        first[reads[first[reads] == 0]] = 1
+        if not rnd.reduce:
+            first[dst[first[dst] == 0]] = 2
+        if not is_direct:
+            stage_rows = max(stage_rows, len(dst))
+        flags = (REDUCE * bool(rnd.reduce) | DIRECT * is_direct
+                 | ORDERED * is_ordered)
+        meta.append((off, len(dst), flags, 0))
+        pairs.append(np.stack([src, dst], axis=1))
+        rounds.append((src, dst, flags))
+        direct.append(is_direct)
+        ordered.append(is_ordered)
+        off += len(dst)
+    load = first != 2
+    live_src = np.where(load, src_row, -1)
+    loads, stores = _boxes(live_src), _boxes(post_row)
 
-    def i32(parts):
-        return (np.concatenate(parts).astype(np.int32) if parts
-                else np.zeros(0, np.int32))
+    def ops(boxes):
+        return np.asarray([(t, f, k, 0) for t, f, k in boxes],
+                          np.int64).reshape(-1, 4)
 
-    return {
-        "meta": np.asarray(meta, np.int32).reshape(-1, 5),
-        "esrc": i32(esrc), "edst": i32(edst), "g": i32(g), "t": i32(t),
-        "pre": None if ex._pre is None else ex._pre.astype(np.int32)
-        .reshape(-1),
-        "post": None if ex._post is None else ex._post.astype(np.int32)
-        .reshape(-1),
-        "stage_rows": stage_rows,
-    }
+    tab = np.concatenate([
+        ops(loads).reshape(-1), ops(stores).reshape(-1),
+        np.asarray(meta, np.int64).reshape(-1),
+        (np.concatenate(pairs) if pairs else np.zeros((0, 2), np.int64))
+        .reshape(-1), live_src, post_row]).astype(np.int32)
+    return {"tab": tab, "src_row": src_row, "post_row": post_row,
+            "load": load, "nlive": int(load.sum()),
+            "loads": loads, "stores": stores,
+            "load_classes": sum({1 << k for _, _, k in loads}),
+            "store_classes": sum({1 << k for _, _, k in stores}),
+            "direct": np.asarray(direct, bool),
+            "ordered": np.asarray(ordered, bool), "rounds": rounds,
+            "stage_rows": stage_rows}
+
+
+_TABLES: "weakref.WeakKeyDictionary[CompiledExec, dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def tables(ex: CompiledExec) -> dict:
+    """``_pack_tables(ex)``, computed once per executor."""
+    tabs = _TABLES.get(ex)
+    if tabs is None:
+        tabs = _TABLES[ex] = _pack_tables(ex)
+    return tabs
+
+
+def smem_bytes(ns: int, stage_rows: int, elem: int, tile: int, nbuf: int,
+               ntab: int = 0) -> int:
+    """The kernel's dynamic shared memory: mbarriers and the table
+    (padded to 128 B), the stage and ``nbuf`` [ns, tile] buffers."""
+    return (-(-(BAR_BYTES + ntab * 4) // 128) * 128
+            + (nbuf * ns + stage_rows) * tile * elem)
 
 
 def pick_tile(ns: int, stage_rows: int, elem: int, chunk_len: int,
-              name: str) -> int:
-    """Columns per CTA: the widest tile whose shared-memory footprint
-    ``(ns + stage_rows) * tile * elem`` stays under the occupancy target,
-    else the 32-wide tile if it fits at all.  Raises ``ValueError`` when
-    even that exceeds what one CTA may hold."""
-    cap = max(32, -(-chunk_len // 32) * 32)
-    for tile in TILES:
-        if tile <= cap and (ns + stage_rows) * tile * elem <= SMEM_TARGET:
-            return tile
-    if (ns + stage_rows) * 32 * elem <= SMEM_MAX:
-        return 32
+              name: str, ntab: int = 0) -> tuple[int, int]:
+    """Columns per item and buffers per CTA.  Rows of at least
+    ``WIDE_ROW_BYTES`` (or the widest the row allows) keep device memory
+    efficient; among those, the widest tile whose ring of two buffers
+    fits the three-CTAs-per-SM target, with as many buffers (up to four)
+    as that target holds; else the narrowest such tile with as many
+    buffers as one CTA may hold; else the narrowest tile (rows of 128 B)
+    with as many as fit.  Raises ``ValueError`` when not even one buffer
+    of that fits."""
+    narrow = MIN_ROW_BYTES // elem
+    cap = max(narrow, -(-chunk_len // narrow) * narrow)
+    tiles = [t for t in TILES if narrow <= t <= cap]
+    wide = [t for t in tiles if t * elem >= WIDE_ROW_BYTES] or tiles[:1]
+
+    def buffers(tile: int, limit: int) -> int:
+        return max((b for b in range(1, MAX_BUFS + 1)
+                    if smem_bytes(ns, stage_rows, elem, tile, b, ntab)
+                    <= limit), default=0)
+
+    for tile in wide:
+        if buffers(tile, SMEM_TARGET) >= 2:
+            return tile, buffers(tile, SMEM_TARGET)
+    for tile in reversed(wide):
+        if buffers(tile, SMEM_MAX) >= 2:
+            return tile, buffers(tile, SMEM_MAX)
+    if buffers(narrow, SMEM_MAX):
+        return narrow, buffers(narrow, SMEM_MAX)
     raise ValueError(
         f"schedule {name!r}: {ns} slots + {stage_rows} staged payloads "
-        f"x 32 columns x {elem} B exceed the {SMEM_MAX} B of shared "
+        f"x {narrow} columns x {elem} B exceed the {SMEM_MAX} B of shared "
         f"memory one CTA may use")
 
 
 def schedule_exec_plain(ex: CompiledExec, gbuf: torch.Tensor) -> torch.Tensor:
-    """The kernel's plain PyTorch version, in the kernel's order: stage
-    in through ``pre``; per round gather every edge's payload from the
-    pre-round state, then land one (edge, position) at a time — a
-    ``set``, or one rounded add for reduce rounds; drain through
+    """The kernel's plain PyTorch version, in the kernel's order: load
+    the live rows through ``pre`` (a row the kernel does not load starts
+    as NaN here, so a read of one would show in the result); per round,
+    land every (src, dst) pair — all at once where the targets are
+    distinct, else one at a time in (edge, position) order — as a
+    ``set`` or one rounded add, from the buffer in direct rounds and
+    from a stage gathered first in hazard rounds; drain through
     ``post``.  Any device, any dtype."""
+    tabs = tables(ex)
     n, s = ex.nranks, ex.num_slots
-    work = gbuf.reshape(n, s, -1)
     dev = gbuf.device
-    rows = torch.arange(n, device=dev)[:, None]
-    if ex._pre is not None:
-        work = work[rows, torch.from_numpy(ex._pre).to(dev)]
-    else:
-        work = work.clone()
-    for rnd in ex._rounds:
-        m, k = len(rnd.src), rnd.k
-        if m == 0:
+    flat = gbuf.reshape(n * s, -1)
+    load = torch.from_numpy(tabs["load"]).to(dev)
+    src_row = torch.from_numpy(tabs["src_row"]).to(dev)
+    work = (flat.new_full(flat.shape, float("nan"))
+            if flat.dtype.is_floating_point else torch.empty_like(flat))
+    work[load] = flat[src_row[load]]
+    for src_np, dst_np, flags in tabs["rounds"]:
+        if not len(dst_np):
             continue
-        src = torch.from_numpy(rnd.src).to(dev)
-        g_safe = torch.from_numpy(np.where(rnd.g_mask, rnd.g_safe, 0)).to(dev)
-        stage = work[src[:, None], g_safe]                    # [m, k, L]
-        stage[torch.from_numpy(~rnd.g_mask).to(dev)] = 0
-        for e in range(m):
-            d = int(rnd.dst[e])
-            for j in range(k):
-                if not rnd.t_mask[e, j]:
-                    continue                                  # dropped
-                ti = int(rnd.t_safe[e, j])
-                if rnd.reduce:
-                    work[d, ti] = work[d, ti] + stage[e, j]
-                else:
-                    work[d, ti] = stage[e, j]
-    if ex._post is not None:
-        work = work[rows, torch.from_numpy(ex._post).to(dev)]
-    return work.reshape(gbuf.shape)
+        src = torch.from_numpy(src_np).to(dev)
+        dst = torch.from_numpy(dst_np).to(dev)
+        masked = src < 0
+        if flags & ORDERED and flags & DIRECT:
+            stage = None                      # read as it lands
+        else:                                 # gathered before landing
+            stage = work[src.clamp_min(0)]
+            stage[masked] = 0
+        if not flags & ORDERED:
+            work[dst] = work[dst] + stage if flags & REDUCE else stage
+            continue
+        for p in range(len(dst_np)):
+            d = dst[p]
+            if stage is not None:
+                v = stage[p]
+            elif masked[p]:
+                v = torch.zeros_like(work[d])
+            else:
+                v = work[src[p]]
+            work[d] = work[d] + v if flags & REDUCE else v
+    out = work[torch.from_numpy(tabs["post_row"]).to(dev)]
+    return out.reshape(gbuf.shape)
 
 
 class KernelExec:
@@ -147,17 +272,21 @@ class KernelExec:
         self.num_slots = ex.num_slots
         self.rounds = ex.rounds_after
         self.launches = 0
-        self._host = _pack_tables(ex)
+        self.tables = tables(ex)
         self._dev: dict = {}
+        self._plans: dict = {}       # (elem, chunk_len) -> (tile, buffers)
+        self._info = (ctypes.c_int * 3)()
+        # what the last launch ran: tile, buffers, grid, CTAs per SM,
+        # path, rows loaded and the design floor in bytes
+        self.last_launch: dict | None = None
 
-    def device_tables(self, device: torch.device) -> dict:
-        """The packed tables on ``device`` (uploaded once per device)."""
-        tabs = self._dev.get(device)
-        if tabs is None:
-            tabs = {k: (None if v is None else torch.from_numpy(v).to(device))
-                    for k, v in self._host.items() if k != "stage_rows"}
-            self._dev[device] = tabs
-        return tabs
+    def device_table(self, device: torch.device) -> torch.Tensor:
+        """The packed int32 table on ``device`` (uploaded once)."""
+        tab = self._dev.get(device)
+        if tab is None:
+            tab = self._dev[device] = torch.from_numpy(
+                self.tables["tab"]).to(device)
+        return tab
 
     def run(self, gbuf: torch.Tensor, *, chunks: int = 1) -> torch.Tensor:
         n, s = self.nranks, self.num_slots
@@ -185,31 +314,43 @@ class KernelExec:
         if not gbuf.is_contiguous():
             raise ValueError("KernelExec.run: the global buffer must be "
                              "contiguous")
-        n, s = self.nranks, self.num_slots
+        ns = self.nranks * self.num_slots
         L = int(math.prod(gbuf.shape[2:]))
         out = torch.empty_like(gbuf)
         if L == 0:
             return out
-        stage_rows = self._host["stage_rows"]
-        tile = pick_tile(n * s, stage_rows, gbuf.element_size(),
-                         L // chunks, self.ex.schedule.name)
-        tabs = self.device_tables(gbuf.device)
-
-        def ptr(x):
-            return None if x is None or x.numel() == 0 else x.data_ptr()
-
+        tabs = self.tables
+        elem = gbuf.element_size()
+        plan = self._plans.get((elem, L // chunks))
+        if plan is None:
+            plan = self._plans[elem, L // chunks] = pick_tile(
+                ns, tabs["stage_rows"], elem, L // chunks,
+                self.ex.schedule.name, len(tabs["tab"]))
+        tile, nbuf = plan
+        tab = self.device_table(gbuf.device)
         lib = cuda.library()
         with torch.cuda.device(gbuf.device):
             stream = torch.cuda.current_stream(gbuf.device).cuda_stream
             err = lib.repro_schedule_exec(
-                code, gbuf.data_ptr(), out.data_ptr(), ptr(tabs["pre"]),
-                ptr(tabs["post"]), ptr(tabs["meta"]), ptr(tabs["esrc"]),
-                ptr(tabs["edst"]), ptr(tabs["g"]), ptr(tabs["t"]),
-                len(self.ex._rounds), n, s, L, chunks, tile, stage_rows,
-                THREADS, stream)
+                code, gbuf.data_ptr(), out.data_ptr(), tab.data_ptr(),
+                tab.numel(), len(tabs["loads"]), len(tabs["stores"]),
+                tabs["load_classes"], tabs["store_classes"],
+                len(self.ex._rounds), ns, L, chunks, tile, nbuf,
+                tabs["stage_rows"], tabs["nlive"],
+                ctypes.cast(self._info, ctypes.c_void_p), stream)
         cuda.check(err, f"schedule_exec[{self.ex.schedule.name}]")
         self.launches += 1
         cuda.LAUNCHES["schedule_exec"] += 1
+        grid, per_sm, aligned = self._info
+        self.last_launch = {
+            "tile": tile, "buffers": nbuf, "grid": grid,
+            "ctas_per_sm": per_sm,
+            "path": "aligned TMA" if aligned else "ragged",
+            "rows_loaded": tabs["nlive"], "rows": ns,
+            "copies": len(tabs["loads"]) + len(tabs["stores"]),
+            "smem_bytes": smem_bytes(ns, tabs["stage_rows"], elem, tile,
+                                     nbuf, len(tabs["tab"])),
+            "floor_bytes": (tabs["nlive"] + ns) * L * elem}
         return out
 
 

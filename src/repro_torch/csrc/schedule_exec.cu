@@ -5,171 +5,548 @@
 // Replaces: src/repro/core/pallas_lowering.py, PallasExec._kernel (the
 // Pallas TPU kernel that bakes the routing program as static indices).
 //
-// What it computes (per column c of the payload, independently):
-//   work[r, i] = in[r, pre[r, i]]                       (stage + pre fold)
-//   for each round:
-//     phase 1: stage[e, j] = g[e, j] >= 0 ? work[src[e], g[e, j]] : 0
-//     phase 2: for e, then j:  if t[e, j] >= 0
-//                work[dst[e], t[e, j]] = reduce ? work[..] + stage[e, j]
-//                                               : stage[e, j]
-//   out[r, i] = work[r, post[r, i]]                     (drain + post)
-// Rows never mix, so each CTA owns a tile of `tile` columns across all
-// n*s slots and runs every round for it: no grid-wide barrier.
+// What it computes (per column of the payload, independently; a "row"
+// is one (rank, slot) pair, rank * s + slot):
+//   work[i] = in[src_row[i]]            for the rows that are loaded
+//   for each round, for each live landing (src, dst) in (edge, position)
+//   order:   work[dst] = reduce ? work[dst] + v : v
+//            with v = work[src] from the pre-round state, or +0 where the
+//            gather is masked (src = -1)
+//   out[i] = work[post_row[i]]
+// The host tables (core/kernel_lowering.py) fold the pre and post
+// permutations into src_row / post_row and list each round's live
+// landings as (src, dst) row pairs; dropped landings are not listed.
 //
-// Bitwise contract with SimTransport.run_reference: reduce adds land one
-// (edge, position) at a time in that order, and bfloat16 adds in f32
-// and rounds back after every add (__float2bfloat16_rn), as ml_dtypes and
-// the Pallas kernel do.  Masked gathers stage +0 and are still added to
-// live targets (x + 0 turns -0.0 into +0.0).  A rank that is not a
-// destination keeps its row.
+// Bound: bytes.  The design floor is every row that reaches the output
+// read once and every row written once: a row whose first access is a
+// set landing is never loaded (src_row = -1), and the routing itself is
+// shared-memory traffic.
 //
-// Bound: bytes.  The work is 2 x the global buffer (each element read
-// once and written once); the routing itself is shared-memory traffic.
-// The design keeps every intermediate round out of device memory: the
-// tile stays in shared memory from stage-in to drain, so device memory
-// sees one read and one write whatever the round count.
+// Design (sm_90a):
+//   * Persistent CTAs: the grid is at most SMs x resident CTAs, and each
+//     CTA walks the (chunk, column tile) items b, b + grid, ...  A tile
+//     of TILE columns across all n*s rows stays in shared memory from
+//     stage-in to drain, so the rounds never touch device memory.
+//   * A ring of nbuf [ns, TILE] buffers.  Warp 0 is the producer: it
+//     stages each item in with TMA boxes of a 3-D tensor map (columns,
+//     chunk, rows), completion counted in bytes on the buffer's mbarrier,
+//     and drains finished items with TMA box stores.  A box covers 2^k
+//     consecutive rows whose source rows are consecutive too (the host
+//     splits runs of live rows, and of the post order, into such boxes),
+//     so pre and post are applied by the choice of rows and the dead
+//     rows are skipped, in a few copies per item instead of one per row.
+//     The tensor map clips the ragged column edge of a chunk.  A buffer
+//     is refilled once its stores have read it
+//     (cp.async.bulk.wait_group.read).  Warps 1..8 run the rounds on the
+//     buffer that has arrived.  So one item's stage-in, another's rounds
+//     and a third's drain overlap, on one SM and across its CTAs.
+//   * Rounds move 16 bytes a thread (4 f32 or 8 bf16).  Direct rounds
+//     (no landing row is also a gather row of the round) land straight
+//     from the buffer; hazard rounds gather into a stage first.  Rounds
+//     whose landing rows are distinct (every round of a validated
+//     schedule) land every (pair, vector) in parallel; rounds with a
+//     repeated landing row keep each target's chain in (edge, position)
+//     order.  TILE is a template constant: no division by a runtime
+//     tile on the element path.
+//   * Rows whose byte length is no multiple of 16 (or a buffer that is
+//     not 16-byte aligned) cannot be described to the TMA: they take the
+//     ragged path of the same launch, scalar loads and stores, one item
+//     at a time, the same rounds.
 //
-// Tables are int32 device arrays packed once per CompiledExec:
-//   meta [R, 5] = (m, k, reduce, edge_off, pos_off)
-//   esrc/edst [sum m], g/t [sum m*k], pre/post [n*s] (or null).
+// Bitwise contract with SimTransport.run_reference: landings at a
+// repeated target are applied one at a time in (edge, position) order;
+// bfloat16 adds are taken in f32 and rounded back after every add
+// (__float2bfloat16_rn), as ml_dtypes and the Pallas kernel do.  Masked
+// gathers contribute +0 and are still added to live targets (x + 0 turns
+// -0.0 into +0.0).  A rank that is not a destination keeps its row.
+//
+// The int32 table `tab` (packed once per CompiledExec) holds, in order:
+//   loads  [NL, 4]  (buffer row, input row, k, 0): box of 2^k rows
+//   stores [NS, 4]  (output row, buffer row, k, 0)
+//   meta   [R, 4]   (pair offset, pair count, flags, 0): kReduce,
+//                   kDirect, kOrdered
+//   pairs  [P, 2]   (src row or -1, dst row) per live landing
+//   src_row [ns], post_row [ns]   (the ragged path's row maps)
+// The kernel copies it into shared memory once per CTA.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-template <typename T> struct Acc {
-  __device__ static T add(T a, T b) { return a + b; }
-  __device__ static T zero() { return T(0); }
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = kConsumerWarps * 32;
+constexpr int kThreads = kConsumers + 32;        // + the producer warp
+constexpr int kMaxBufs = 4;
+constexpr int kBarBytes = 2 * kMaxBufs * 8;      // full[] and done[]
+constexpr int kClasses = 9;                      // boxes of 1 .. 256 rows
+// Shared memory one CTA may use on sm_90 (227 KB).
+constexpr int kSmemMax = 232448;
+
+enum : int { kReduce = 1, kDirect = 2, kOrdered = 4 };
+
+// Tensor maps of the input and the output, one per box height 2^k rows
+// (only the heights the schedule's copies use are encoded).
+struct Maps {
+  CUtensorMap in[kClasses];
+  CUtensorMap out[kClasses];
 };
-template <> struct Acc<__nv_bfloat16> {
-  __device__ static __nv_bfloat16 add(__nv_bfloat16 a, __nv_bfloat16 b) {
-    return __float2bfloat16_rn(__bfloat162float(a) + __bfloat162float(b));
+
+// ---- 16-byte vectors --------------------------------------------------
+
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  __device__ static uint4 add(uint4 a, uint4 b) {
+    uint4 r;
+    r.x = __float_as_uint(__uint_as_float(a.x) + __uint_as_float(b.x));
+    r.y = __float_as_uint(__uint_as_float(a.y) + __uint_as_float(b.y));
+    r.z = __float_as_uint(__uint_as_float(a.z) + __uint_as_float(b.z));
+    r.w = __float_as_uint(__uint_as_float(a.w) + __uint_as_float(b.w));
+    return r;
   }
-  __device__ static __nv_bfloat16 zero() { return __float2bfloat16_rn(0.f); }
+};
+template <> struct Vec<__nv_bfloat16> {
+  __device__ static uint32_t add2(uint32_t a, uint32_t b) {
+    const __nv_bfloat162 x = *reinterpret_cast<__nv_bfloat162*>(&a);
+    const __nv_bfloat162 y = *reinterpret_cast<__nv_bfloat162*>(&b);
+    __nv_bfloat162 r;
+    r.x = __float2bfloat16_rn(__bfloat162float(x.x) + __bfloat162float(y.x));
+    r.y = __float2bfloat16_rn(__bfloat162float(x.y) + __bfloat162float(y.y));
+    return *reinterpret_cast<uint32_t*>(&r);
+  }
+  __device__ static uint4 add(uint4 a, uint4 b) {
+    return make_uint4(add2(a.x, b.x), add2(a.y, b.y), add2(a.z, b.z),
+                      add2(a.w, b.w));
+  }
 };
 
-template <typename T>
-__global__ void schedule_exec_kernel(
-    const T* __restrict__ in, T* __restrict__ out,
-    const int* __restrict__ pre, const int* __restrict__ post,
-    const int* __restrict__ meta, const int* __restrict__ esrc,
-    const int* __restrict__ edst, const int* __restrict__ g,
-    const int* __restrict__ t, int rounds, int ns, int s, int64_t L,
-    int64_t chunk_len, int tile) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* work = reinterpret_cast<T*>(smem_raw);         // [ns, tile]
-  T* stage = work + (int64_t)ns * tile;             // [max m*k, tile]
+// ---- mbarriers and bulk copies (PTX) ----------------------------------
 
-  const int64_t c_in_chunk = (int64_t)blockIdx.x * tile;
-  const int64_t col0 = (int64_t)blockIdx.y * chunk_len + c_in_chunk;
-  const int64_t left = chunk_len - c_in_chunk;
-  const int width = left < tile ? (int)left : tile;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // stage in, applying the pre fold
-  for (int idx = threadIdx.x; idx < ns * tile; idx += blockDim.x) {
-    const int row = idx / tile, c = idx - row * tile;
-    if (c < width) {
-      const int r = row / s;
-      const int srow = pre ? r * s + pre[row] : row;
-      work[idx] = in[(int64_t)srow * L + col0 + c];
-    }
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Spin until the phase of the given parity has completed.  A wait that
+// outlasts kWaitCycles (about 17 s) faults the launch instead of hanging
+// the card.
+constexpr long long kWaitCycles = 1LL << 35;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > kWaitCycles) __trap();
   }
-  __syncthreads();
+}
 
+// One box of a 3-D tensor map (columns, chunk, rows) into shared memory;
+// completion counted in bytes on the mbarrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int chunk, int row,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col),
+         "r"(chunk), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// One box from shared memory out to the tensor map's tensor (bulk group).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int col, int chunk,
+                                          int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col),
+         "r"(chunk), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to
+// later bulk copies (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Barrier over the consumer warps only (named barrier 1).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(kConsumers) : "memory");
+}
+
+// ---- the rounds, on one [ns, TILE] buffer -----------------------------
+
+// Every round of the schedule on `work` (rows of VPR 16-byte vectors),
+// run by the kConsumers threads (ct = 0 .. kConsumers - 1).  Ends with a
+// consumer barrier after every round, so the next item may reuse the
+// stage.
+template <typename T, int VPR>
+__device__ void run_rounds(uint4* work, uint4* stage, const int4* meta,
+                           const int2* pairs, int rounds, int ct) {
+  const uint4 zero = make_uint4(0, 0, 0, 0);
   for (int q = 0; q < rounds; ++q) {
-    const int m = meta[q * 5 + 0], k = meta[q * 5 + 1];
-    const int reduce = meta[q * 5 + 2];
-    const int eo = meta[q * 5 + 3], po = meta[q * 5 + 4];
-    // phase 1: every edge's payload from the pre-round state
-    for (int idx = threadIdx.x; idx < m * k * tile; idx += blockDim.x) {
-      const int ej = idx / tile, c = idx - ej * tile;
-      const int gi = g[po + ej];
-      stage[idx] = gi >= 0
-          ? work[(esrc[eo + ej / k] * s + gi) * tile + c]
-          : Acc<T>::zero();
+    const int4 mq = meta[q];
+    const int2* pr = pairs + mq.x;
+    const int np = mq.y, flags = mq.z;
+    const bool reduce = flags & kReduce;
+    const bool staged = !(flags & kDirect);
+    if (staged) {                         // hazard: gather into the stage
+      for (int idx = ct; idx < np * VPR; idx += kConsumers) {
+        const int p = idx / VPR, v = idx - p * VPR;
+        const int sr = pr[p].x;
+        stage[idx] = sr >= 0 ? work[sr * VPR + v] : zero;
+      }
+      consumers_sync();
     }
-    __syncthreads();
-    // phase 2: land in (edge, position) order; each thread owns columns
-    for (int c = threadIdx.x; c < tile; c += blockDim.x) {
-      for (int e = 0; e < m; ++e) {
-        const int base = edst[eo + e] * s;
-        for (int j = 0; j < k; ++j) {
-          const int ti = t[po + e * k + j];
-          if (ti < 0) continue;                      // dropped slot
-          const T v = stage[(e * k + j) * tile + c];
-          T* p = &work[(base + ti) * tile + c];
-          *p = reduce ? Acc<T>::add(*p, v) : v;
+    if (!(flags & kOrdered)) {            // distinct targets: all at once
+      for (int idx = ct; idx < np * VPR; idx += kConsumers) {
+        const int p = idx / VPR, v = idx - p * VPR;
+        const int2 e = pr[p];
+        const uint4 val = staged ? stage[idx]
+                                 : e.x >= 0 ? work[e.x * VPR + v] : zero;
+        uint4* dst = &work[e.y * VPR + v];
+        *dst = reduce ? Vec<T>::add(*dst, val) : val;
+      }
+    } else {                              // repeated targets: in order
+      for (int v = ct; v < VPR; v += kConsumers) {
+        for (int p = 0; p < np; ++p) {
+          const int2 e = pr[p];
+          const uint4 val = staged ? stage[p * VPR + v]
+                                   : e.x >= 0 ? work[e.x * VPR + v] : zero;
+          uint4* dst = &work[e.y * VPR + v];
+          *dst = reduce ? Vec<T>::add(*dst, val) : val;
         }
       }
     }
-    __syncthreads();
-  }
-
-  // drain through the post permutation
-  for (int idx = threadIdx.x; idx < ns * tile; idx += blockDim.x) {
-    const int row = idx / tile, c = idx - row * tile;
-    if (c < width) {
-      const int r = row / s;
-      const int wrow = post ? r * s + post[row] : row;
-      out[(int64_t)row * L + col0 + c] = work[wrow * tile + c];
-    }
+    consumers_sync();
   }
 }
 
-// Shared memory one CTA may use on sm_90 (227 KB); the wrapper sizes
-// the tile to stay under it.
-constexpr int kSmemMax = 232448;
+// ---- the kernel -------------------------------------------------------
 
-// Opt the kernel in to kSmemMax of dynamic shared memory, once per
-// device and type, outside the per-launch path.
-template <typename T>
-cudaError_t allow_smem() {
-  static bool done[64] = {};
+template <typename T, int TILE>
+__global__ void __launch_bounds__(kThreads)
+schedule_exec_kernel(const T* __restrict__ in, T* __restrict__ out,
+                     const __grid_constant__ Maps maps,
+                     const int* __restrict__ tab, int ntab, int nloads,
+                     int nstores, int rounds, int ns, int64_t L,
+                     int64_t chunk_len, int items, int nbuf, int stage_rows,
+                     int nlive, int aligned) {
+  constexpr int ROW_BYTES = TILE * (int)sizeof(T);
+  constexpr int VPR = ROW_BYTES / 16;
+  static_assert(ROW_BYTES % 128 == 0, "TMA boxes start 128-byte aligned");
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);   // full, then done
+  int* stab = reinterpret_cast<int*>(smem + kBarBytes);
+  const int4* loads = reinterpret_cast<const int4*>(stab);
+  const int4* stores = loads + nloads;
+  const int4* meta = stores + nstores;
+  const int2* pairs = reinterpret_cast<const int2*>(meta + rounds);
+  const int* src_row = stab + ntab - 2 * ns;
+  const int* post_row = stab + ntab - ns;
+  unsigned char* stage_ptr = smem + ((kBarBytes + ntab * 4 + 127) & ~127);
+  uint4* stage = reinterpret_cast<uint4*>(stage_ptr);
+  unsigned char* buf0 = stage_ptr + (size_t)stage_rows * ROW_BYTES;
+  const size_t buf_bytes = (size_t)ns * ROW_BYTES;
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < ntab; i += kThreads) stab[i] = tab[i];
+  if (tid == 0) {
+    for (int b = 0; b < nbuf; ++b) {
+      mbar_init(smem_addr(&bars[b]), 1);                      // full
+      mbar_init(smem_addr(&bars[kMaxBufs + b]), kConsumers);  // done
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles = (int)((chunk_len + TILE - 1) / TILE);
+  const int count = (items - (int)blockIdx.x + (int)gridDim.x - 1)
+                    / (int)gridDim.x;
+  // item j of this CTA -> its chunk and first column within the chunk
+  auto item = [&](int j, int& chunk, int& col) {
+    const int it = (int)blockIdx.x + j * (int)gridDim.x;
+    chunk = it / tiles;
+    col = (it - chunk * tiles) * TILE;
+  };
+
+  if (!aligned) {
+    // ragged path: scalar copies, one item at a time, consumers only
+    if (tid < 32) return;
+    const int ct = tid - 32;
+    T* work = reinterpret_cast<T*>(buf0);
+    for (int j = 0; j < count; ++j) {
+      int chunk, col;
+      item(j, chunk, col);
+      const int64_t col0 = (int64_t)chunk * chunk_len + col;
+      const int width = chunk_len - col < TILE ? (int)(chunk_len - col)
+                                               : TILE;
+      for (int idx = ct; idx < ns * TILE; idx += kConsumers) {
+        const int row = idx / TILE, c = idx - row * TILE;
+        const int sr = src_row[row];
+        if (c < width && sr >= 0) work[idx] = in[(int64_t)sr * L + col0 + c];
+      }
+      consumers_sync();
+      run_rounds<T, VPR>(reinterpret_cast<uint4*>(work), stage, meta, pairs,
+                         rounds, ct);
+      for (int idx = ct; idx < ns * TILE; idx += kConsumers) {
+        const int row = idx / TILE, c = idx - row * TILE;
+        if (c < width)
+          out[(int64_t)row * L + col0 + c] = work[post_row[row] * TILE + c];
+      }
+      consumers_sync();
+    }
+    return;
+  }
+
+  if (tid < 32) {
+    // producer warp: TMA stage-in and drain
+    const int lane = tid;
+    auto load = [&](int j) {
+      const int b = j % nbuf;
+      int chunk, col;
+      item(j, chunk, col);
+      const uint32_t bar = smem_addr(&bars[b]);
+      const uint32_t dst = smem_addr(buf0 + b * buf_bytes);
+      // a box counts its full size, columns past the chunk's end included
+      if (lane == 0) mbar_arrive_tx(bar, (uint32_t)nlive * ROW_BYTES);
+      __syncwarp();
+      for (int op = lane; op < nloads; op += 32) {
+        const int4 o = loads[op];
+        tma_load(dst + o.x * ROW_BYTES, &maps.in[o.z], col, chunk, o.y, bar);
+      }
+    };
+    for (int j = 0; j < count && j < nbuf; ++j) load(j);
+    for (int j = 0; j < count; ++j) {
+      const int b = j % nbuf;
+      mbar_wait(smem_addr(&bars[kMaxBufs + b]), (j / nbuf) & 1);
+      int chunk, col;
+      item(j, chunk, col);
+      const uint32_t src = smem_addr(buf0 + b * buf_bytes);
+      for (int op = lane; op < nstores; op += 32) {
+        const int4 o = stores[op];
+        tma_store(&maps.out[o.z], src + o.y * ROW_BYTES, col, chunk, o.x);
+      }
+      bulk_commit();
+      if (j + nbuf < count) {
+        bulk_wait_read();       // this lane's stores have read buffer b
+        __syncwarp();
+        load(j + nbuf);
+      }
+    }
+    bulk_wait_all();
+    return;
+  }
+
+  // consumer warps: the rounds of each item that has arrived
+  const int ct = tid - 32;
+  for (int j = 0; j < count; ++j) {
+    const int b = j % nbuf;
+    mbar_wait(smem_addr(&bars[b]), (j / nbuf) & 1);
+    run_rounds<T, VPR>(reinterpret_cast<uint4*>(buf0 + b * buf_bytes), stage,
+                       meta, pairs, rounds, ct);
+    fence_async_smem();
+    mbar_arrive(smem_addr(&bars[kMaxBufs + b]));
+  }
+}
+
+// ---- host side --------------------------------------------------------
+
+template <typename T> constexpr CUtensorMapDataType kMapType =
+    CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+template <> constexpr CUtensorMapDataType kMapType<__nv_bfloat16> =
+    CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the process already runs on
+// (looked up at run time, so the library links against the runtime only).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* h = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (!h) h = dlopen("libcuda.so.1", RTLD_LAZY);
+    if (h) fn = reinterpret_cast<EncodeTiled>(
+        dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// The tensor [rows, chunks, chunk_len] as a 3-D map with boxes of
+// (TILE columns, 1 chunk, 2^k rows), for every k set in `classes`.
+template <typename T, int TILE>
+int encode_maps(CUtensorMap* maps, const void* base, int ns, int64_t L,
+                int chunks, int classes) {
+  EncodeTiled encode = encoder();
+  if (!encode) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const int64_t chunk_len = L / chunks;
+  const cuuint64_t dims[3] = {(cuuint64_t)chunk_len, (cuuint64_t)chunks,
+                              (cuuint64_t)ns};
+  const cuuint64_t strides[2] = {(cuuint64_t)(chunk_len * sizeof(T)),
+                                 (cuuint64_t)(L * sizeof(T))};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  for (int k = 0; k < kClasses; ++k) {
+    if (!(classes >> k & 1)) continue;
+    const cuuint32_t box[3] = {(cuuint32_t)TILE, 1, 1u << k};
+    const CUresult res = encode(
+        &maps[k], kMapType<T>, 3, const_cast<void*>(base), dims, strides, box,
+        unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+template <typename T, int TILE>
+int launch_tile(const void* in, void* out, const int* tab, int ntab,
+                int nloads, int nstores, int load_classes, int store_classes,
+                int rounds, int ns, int64_t L, int chunks, int nbuf,
+                int stage_rows, int nlive, int aligned, size_t smem,
+                int* info, cudaStream_t stream) {
+  auto kern = schedule_exec_kernel<T, TILE>;
+  // opt in to kSmemMax of dynamic shared memory once per device, and
+  // cache the occupancy of the last footprint
+  static bool opted[64] = {};
+  static size_t occ_smem[64] = {};
+  static int occ[64] = {}, sms[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(schedule_exec_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemMax);
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
-  return err;
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemMax);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = true;
+  }
+  if (occ_smem[dev] != smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[dev], kern,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (occ[dev] < 1) return (int)cudaErrorInvalidConfiguration;
+    occ_smem[dev] = smem;
+  }
+  const int64_t chunk_len = L / chunks;
+  const int64_t items = (chunk_len + TILE - 1) / TILE * chunks;
+  if (items > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int64_t cap = (int64_t)sms[dev] * occ[dev];
+  const int grid = (int)(items < cap ? items : cap);
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (aligned) {
+    int rc = encode_maps<T, TILE>(maps.in, in, ns, L, chunks, load_classes);
+    if (!rc)
+      rc = encode_maps<T, TILE>(maps.out, out, ns, L, chunks, store_classes);
+    if (rc) return rc;
+  }
+  if (info) {
+    info[0] = grid;
+    info[1] = occ[dev];
+  }
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), maps, tab, ntab,
+      nloads, nstores, rounds, ns, L, chunk_len, (int)items, nbuf, stage_rows,
+      nlive, aligned);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* in, void* out, const int* pre, const int* post,
-           const int* meta, const int* esrc, const int* edst, const int* g,
-           const int* t, int rounds, int n, int s, int64_t L, int chunks,
-           int tile, int stage_rows, int threads, cudaStream_t stream) {
-  const int ns = n * s;
-  const size_t smem = (size_t)(ns + stage_rows) * tile * sizeof(T);
+int launch(const void* in, void* out, const int* tab, int ntab, int nloads,
+           int nstores, int load_classes, int store_classes, int rounds,
+           int ns, int64_t L, int chunks, int tile, int nbuf, int stage_rows,
+           int nlive, int* info, cudaStream_t stream) {
+  if (nbuf < 1 || nbuf > kMaxBufs || chunks < 1 || L % chunks)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (((size_t)kBarBytes + (size_t)ntab * 4 + 127)
+                       & ~(size_t)127)
+      + ((size_t)nbuf * ns + stage_rows) * tile * sizeof(T);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<T>();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t chunk_len = L / chunks;
-  dim3 grid((unsigned)((chunk_len + tile - 1) / tile), (unsigned)chunks);
-  schedule_exec_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), pre, post, meta,
-      esrc, edst, g, t, rounds, ns, s, L, chunk_len, tile);
-  return (int)cudaGetLastError();
+  // the TMA needs row strides and buffers 16-byte aligned
+  const int aligned = (L / chunks * (int64_t)sizeof(T)) % 16 == 0
+      && reinterpret_cast<uintptr_t>(in) % 16 == 0
+      && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (info) info[2] = aligned;
+  // rows of 128 B at least, so that every TMA box starts 128-byte aligned
+#define TILE_CASE(N)                                                         \
+  case N:                                                                    \
+    if constexpr (N * sizeof(T) % 128 == 0)                                  \
+      return launch_tile<T, N>(in, out, tab, ntab, nloads, nstores,          \
+                               load_classes, store_classes, rounds, ns, L,   \
+                               chunks, nbuf, stage_rows, nlive, aligned,     \
+                               smem, info, stream);                          \
+    break;
+  switch (tile) {
+    TILE_CASE(32) TILE_CASE(64) TILE_CASE(128) TILE_CASE(256)
+  }
+#undef TILE_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16.  load/store_classes: bit k is set
+// when some copy moves a box of 2^k rows.  info (host, optional)
+// receives the grid, the resident CTAs per SM and whether the aligned
+// TMA path ran.
 extern "C" int repro_schedule_exec(
-    int dtype, const void* in, void* out, const int* pre, const int* post,
-    const int* meta, const int* esrc, const int* edst, const int* g,
-    const int* t, int rounds, int n, int s, int64_t L, int chunks, int tile,
-    int stage_rows, int threads, void* stream) {
+    int dtype, const void* in, void* out, const int* tab, int ntab,
+    int nloads, int nstores, int load_classes, int store_classes, int rounds,
+    int ns, int64_t L, int chunks, int tile, int nbuf, int stage_rows,
+    int nlive, int* info, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(in, out, pre, post, meta, esrc, edst, g, t,
-                                 rounds, n, s, L, chunks, tile, stage_rows,
-                                 threads, st);
-    case 1: return launch<__nv_bfloat16>(in, out, pre, post, meta, esrc,
-                                         edst, g, t, rounds, n, s, L, chunks,
-                                         tile, stage_rows, threads, st);
+    case 0: return launch<float>(in, out, tab, ntab, nloads, nstores,
+                                 load_classes, store_classes, rounds, ns, L,
+                                 chunks, tile, nbuf, stage_rows, nlive, info,
+                                 st);
+    case 1: return launch<__nv_bfloat16>(in, out, tab, ntab, nloads, nstores,
+                                         load_classes, store_classes, rounds,
+                                         ns, L, chunks, tile, nbuf,
+                                         stage_rows, nlive, info, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

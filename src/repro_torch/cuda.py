@@ -38,10 +38,11 @@ BUILD_SECONDS: float | None = None     # wall time of this process's build
 _vp, _i, _i64, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                      ctypes.c_float)
 _SIGNATURES = {
-    # dtype, in, out, pre, post, meta, esrc, edst, g, t, rounds, n, s, L,
-    # chunks, tile, stage_rows, threads, stream
-    "repro_schedule_exec": [_i] + [_vp] * 9 + [_i, _i, _i, _i64, _i, _i,
-                                               _i, _i, _vp],
+    # dtype, in, out, tab, ntab, loads, stores, load/store box classes,
+    # rounds, ns, L, chunks, tile, buffers, stage_rows, live rows, info,
+    # stream
+    "repro_schedule_exec": [_i, _vp, _vp, _vp] + [_i] * 7 + [_i64]
+                           + [_i] * 5 + [_vp, _vp],
     # dtype, scale dtype, parts, scale, out, P, R, d, eps, gemma, threads,
     # stream
     "repro_rmsnorm_reduce": [_i, _i, _vp, _vp, _vp, _i, _i64, _i, _f, _i,
@@ -125,7 +126,7 @@ def build(*, verbose: bool = False) -> Path:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         lib_tmp = Path(tmp) / out.name
         link = [cc, *ARCH_FLAGS, "-shared", "-o", str(lib_tmp),
-                *(str(obj) for _, obj, _ in procs)]
+                *(str(obj) for _, obj, _ in procs), "-ldl"]
         res = subprocess.run(link, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
         if res.returncode:

@@ -9,7 +9,9 @@ JAX:
 
 Tolerances: the transport kernel is bitwise (f32 and bf16) against
 ``schedule_exec_plain`` and, in f32, against the numpy oracle
-``run_reference``; the rmsnorm kernels are within 1e-5 (f32) or one
+``run_reference``, on its ragged path (slots [4, 33]: bf16 rows, and
+every row at chunks=2, are no whole 16 B) and its aligned TMA path
+(slots [4, 64], a ring of buffers that wraps, repeated targets); the rmsnorm kernels are within 1e-5 (f32) or one
 bf16 ulp of their plain versions (the f32 mean is reduced in another
 order); the flash-attention kernels are within the reference's kernel
 tolerances of their plain version, ``3e-5`` in f32 and ``2e-2`` in bf16
@@ -118,6 +120,95 @@ def test_transport_kernel_masked_gather_adds_zero(cuda_device):
     buf = np.array([[[1.5], [2.0]], [[-0.0], [-0.0]]], np.float32)
     want = SimTransport(2).run_reference(sched, buf)
     got = get_kernel_exec(sched).run(torch.from_numpy(buf).to(cuda_device))
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+
+
+def _registry(topo):
+    for coll, algos in REGISTRY.items():
+        for name, builder in algos.items():
+            try:
+                yield f"{topo.fingerprint()} {coll}.{name}", builder(topo)
+            except NotApplicable:
+                continue
+
+
+def test_transport_kernel_aligned_sweep(cuda_device):
+    """Every REGISTRY schedule at slots [4, 64] (rows of 256 B in f32, 128
+    B in bf16) through the aligned TMA path, hazard rounds, pre and post
+    included: bitwise equal to the plain version (f32, bf16) and to
+    run_reference (f32), chunks 2 and 4 bit-identical to chunks 1."""
+    rng = np.random.default_rng(3)
+    seen = 0
+    for topo in TOPOS:
+        for label, sched in _registry(topo):
+            buf = _float_buf(rng, (topo.nranks, sched.num_slots, 4, 64))
+            want = SimTransport(topo.nranks).run_reference(sched, buf)
+            kex = get_kernel_exec(sched, topo=topo)
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.from_numpy(buf).to(cuda_device, dtype)
+                got = kex.run(g)
+                torch.cuda.synchronize()
+                assert kex.last_launch["path"] == "aligned TMA", label
+                plain = schedule_exec_plain(kex.ex, g)
+                assert torch.equal(_bits(got), _bits(plain)), label
+                for chunks in (2, 4):
+                    assert torch.equal(_bits(kex.run(g, chunks=chunks)),
+                                       _bits(got)), (label, chunks)
+                if dtype == torch.float32:
+                    assert got.cpu().numpy().tobytes() == want.tobytes(), \
+                        label
+            seen += 1
+    assert seen >= 80
+
+
+@pytest.mark.parametrize("coll,algo,dtype", [
+    ("allreduce", "ring_rs_ag", torch.float32),
+    ("alltoall", "pairwise", torch.bfloat16),
+])
+def test_transport_kernel_buffer_ring_wraps(cuda_device, coll, algo, dtype):
+    """More column tiles than the persistent grid has CTAs: each CTA's
+    ring of buffers wraps several times, and the result stays bitwise."""
+    topo = flat_topology(8)
+    sched = REGISTRY[coll][algo](topo)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    g = torch.randn((8, sched.num_slots, 1 << 18), generator=gen,
+                    device=cuda_device, dtype=dtype)
+    kex = get_kernel_exec(sched, topo=topo)
+    got = kex.run(g)
+    torch.cuda.synchronize()
+    info = kex.last_launch
+    items = -(-g.shape[-1] // info["tile"])
+    assert info["path"] == "aligned TMA"
+    # every CTA takes items enough to go round its ring twice or more
+    assert items >= 2 * info["grid"] * info["buffers"], info
+    assert torch.equal(_bits(got), _bits(schedule_exec_plain(kex.ex, g)))
+
+
+@pytest.mark.parametrize("reduce", [True, False])
+@pytest.mark.parametrize("width", [64, 33])
+def test_transport_kernel_repeated_targets(cuda_device, monkeypatch, reduce,
+                                           width):
+    """A round that lands two positions on one row (validation off) runs
+    ordered, through the stage: reduce adds in (edge, position) order and
+    the last set wins, bitwise against the numpy oracle, on the aligned
+    (64 columns) and the ragged (33) path."""
+    monkeypatch.setenv("REPRO_VALIDATE_SCHEDULES", "0")
+    gi = np.array([[0, 1], [0, 1]], np.int32)
+    si = np.array([[1, 1], [0, 0]], np.int32)
+    rnd = CommRound(perm=((0, 1), (1, 0)), gather_idx=gi, scatter_idx=si,
+                    reduce=reduce)
+    sched = CommSchedule(nranks=2, num_slots=2, rounds=(rnd,), name="dup")
+    rng = np.random.default_rng(6)
+    buf = (rng.standard_normal((2, 2, width)) * np.array(
+        [[[1e8], [1.0]], [[-1e8], [3.0]]])).astype(np.float32)
+    want = SimTransport(2).run_reference(sched, buf)
+    kex = get_kernel_exec(sched, optimize=False)
+    assert kex.tables["ordered"].all()
+    got = kex.run(torch.from_numpy(buf).to(cuda_device))
+    torch.cuda.synchronize()
+    assert kex.last_launch["path"] == ("aligned TMA" if width == 64
+                                       else "ragged")
     assert got.cpu().numpy().tobytes() == want.tobytes()
 
 
