@@ -19,9 +19,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              per run.  Then both flash-attention kernels against their
              plain version on random floats: head_dim 64/128/256, GQA
              groups 1/2/8, causal, window and softcap alone and
-             together, non-causal, f32 and bf16 (the gather kernel with
-             a random permutation and 1/8 of the rows at -1, which must
-             come out exact zeros);
+             together, non-causal, f32 and bf16, head dims padded to
+             128 and 256 (the gather kernel with a random permutation
+             and 1/8 of the rows at -1, which must come out exact
+             zeros), each call's body (Hopper wgmma or CUDA cores)
+             counted and required: wgmma for every aligned bf16 call;
 3. main    — launch counters reset, then the collective path once at
              sizes users run: Topology -> selector -> builder ->
              executor -> ``KernelTransport.run_global`` for a 25 MiB-
@@ -35,15 +37,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 4. serve   — gemma2-2b at full width (26 layers, random weights from a
              seeded generator on the card): (a) counters reset, the
              kernel prefill of one 8192-token prompt, counters read (26
-             flash launches), each layer's kernel output checked
-             against the plain ``core_attention`` on the same q/k/v and
-             the logits against the plain prefill; (b) the launcher's
+             flash launches, all on the wgmma body), each layer's kernel
+             output checked against the plain ``core_attention`` on the
+             same q/k/v and the logits against the plain prefill, then
+             the prefill timed alone (CUDA events, median of 3); (b) the launcher's
              loop at batch 4, prompt 32, gen 16, in bf16 (reported,
              beside the plain prefill as the control) and with the same
              weights widened to f32, where the teacher-forced decode
              logits must match the kernel prefill's at the reference's
              model tolerance.  Then the dispatch-gather op
-             ``flash_attention(q_rows=...)`` at a gemma2 layer's shape;
+             ``flash_attention(q_rows=...)`` at a gemma2 layer's shape
+             (one launch, on the wgmma body);
 5. rwkv    — the wkv6 kernel against its plain version on random floats
              (the reference's sweep shapes, head size 64 at 40 heads, a T
              that is no multiple of 64; f32, bf16 and the model's mix of
@@ -65,7 +69,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              period of 8 layers at full width, experts 0-7 of 16, random
              bf16 weights from a seeded generator on the card): (a)
              counters reset, the kernel prefill of one 8192-token
-             prompt, counters read (7 mamba_scan and 1 flash launches),
+             prompt, counters read (7 mamba_scan and 1 flash launches,
+             the flash one on the wgmma body), the prefill timed alone,
              each mamba layer's kernel output checked against
              ``selective_scan_plain`` on the same inputs, the largest
              |residual| after each layer printed and the logits reported
@@ -84,7 +89,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              or operations at 67 TFLOP/s f32 / 989 TFLOP/s bf16 tensor
              cores for attention / the exps of the scan at 16 per clock
              per SM on the special-function units, at the card's top SM
-             clock).
+             clock); for attention also the TFLOP/s, the share of the
+             bound and the k/v bytes the body's tiling reads (from L2
+             or device memory: each CTA reads its visited kv tiles).
 
 The last two lines of standard output are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -473,8 +480,8 @@ def time_long_ms(torch, fn, *args) -> tuple[float, str]:
 KERNEL_SYMBOLS = {"schedule_exec": "schedule_exec_kernel",
                   "rmsnorm_reduce": "rmsnorm_rows_kernel",
                   "rmsnorm": "rmsnorm_rows_kernel",
-                  # either body: flash_attention_mma_kernel (bf16
-                  # tensor cores) or flash_attention_kernel (CUDA cores)
+                  # either body: flash_attention_wgmma_kernel (bf16,
+                  # Hopper) or flash_attention_kernel (CUDA cores)
                   "flash_attention": "flash_attention_",
                   "flash_attention_gather": "flash_attention_",
                   "wkv6": "wkv6_kernel", "mamba_scan": "mamba_scan_kernel"}
@@ -638,7 +645,23 @@ ATTN_VARIANTS = [dict(causal=True), dict(causal=True, window=64),
                                           softcap=30.0)]
 SERVE_ARCH = "gemma2-2b"
 PREFILL_TOKENS = 8192            # past the 4096 window of the local layers
+PREFILL_TIMES = 3                # prefills timed alone
 LAUNCH_BATCH, LAUNCH_PROMPT, LAUNCH_GEN = 4, 32, 16
+
+
+def _prefill_ms(torch, prefill, params, prompt) -> float:
+    """One prefill's time on the card: CUDA events around it, median of
+    PREFILL_TIMES runs (the recorders off)."""
+    per = []
+    for _ in range(PREFILL_TIMES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        prefill(params, prompt)
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b))
+    return statistics.median(per)
 
 
 def _close(torch, got, want, atol, rtol, what) -> float:
@@ -670,8 +693,11 @@ def attention_parity(torch, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     checked, worst = 0, {}
+    bodies = {"wgmma": 0, "cuda_cores": 0}
     shapes = [(D, 8, 8 // g, 256) for D in (64, 128, 256) for g in (1, 2, 8)]
     shapes.append((128, 8, 4, 200))              # ragged last tile
+    shapes.append((96, 4, 2, 333))               # D padded to 128
+    shapes.append((136, 4, 2, 400))              # D padded to 256
     shapes.append((20, 6, 2, 160))               # bf16 on the CUDA cores
     for D, H, K, S in shapes:
         for dtname in ("float32", "bfloat16"):
@@ -685,11 +711,18 @@ def attention_parity(torch, dev) -> dict:
                 for q_rows in (None, rows):
                     name = ("flash_attention" if q_rows is None
                             else "flash_attention_gather")
+                    body = ("wgmma" if dtname == "bfloat16" and D % 8 == 0
+                            else "cuda_cores")
                     n0 = cuda.LAUNCHES[name]
+                    b0 = cuda.FLASH_BODIES[body]
                     got = flash_attention_bshd(q, k, v, q_rows=q_rows, **kw)
                     torch.cuda.synchronize()
                     _require(cuda.LAUNCHES[name] == n0 + 1,
                              f"{name}: not one launch per call")
+                    _require(cuda.FLASH_BODIES[body] == b0 + 1,
+                             f"{name} D={D} {dtname}: not on the {body} "
+                             f"body ({cuda.FLASH_BODIES})")
+                    bodies[body] += 1
                     want = flash_attention_plain(q, k, v, q_rows=q_rows, **kw)
                     label = f"{name} D={D} H={H} K={K} S={S} {dtname} {kw}"
                     err = _close(torch, got, want, tol, tol, label)
@@ -699,10 +732,10 @@ def attention_parity(torch, dev) -> dict:
                     worst[name] = max(worst.get(name, 0.0), err)
                     checked += 1
     print(f"attention parity: {checked} kernel calls (head_dim 64/128/256, "
-          f"20 and 128 at ragged lengths, groups 1/2/8/3, "
+          f"20, 96, 128 and 136 at ragged lengths, groups 1/2/8/3, "
           f"{len(ATTN_VARIANTS)} mask/softcap variants, f32 "
           f"and bf16, plain and gather) within atol=rtol 3e-5 (f32) / "
-          f"2e-2 (bf16); max |err| {worst}; "
+          f"2e-2 (bf16); max |err| {worst}; bodies {bodies}; "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     return worst
 
@@ -754,14 +787,18 @@ def serve_path(torch, dev) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = dict(cuda.LAUNCHES)
+        bodies = dict(cuda.FLASH_BODIES)
     finally:
         attn_ops.flash_attention = real_op
     print(f"serve (a) prefill: B=1 S={PREFILL_TOKENS} in {dt * 1e3:.3f} ms "
           f"= {PREFILL_TOKENS / dt:.1f} tokens/s (host clock around the "
-          f"step, synchronized), launches {launches}", flush=True)
+          f"step, synchronized), launches {launches}, flash bodies "
+          f"{bodies}", flush=True)
     _require(launches["flash_attention"] == cfg.n_layers,
              f"prefill launched flash_attention "
              f"{launches['flash_attention']} times, not {cfg.n_layers}")
+    _require(bodies == {"wgmma": cfg.n_layers, "cuda_cores": 0},
+             f"prefill flash bodies {bodies}, not all wgmma")
     _require(len(records) == cfg.n_layers, "not one attention per layer")
     _require(logits.shape == (1, PREFILL_TOKENS, V)
              and bool(torch.isfinite(logits).all()), "prefill logits")
@@ -778,6 +815,10 @@ def serve_path(torch, dev) -> dict:
     print(f"serve (a) layers: all {len(records)} kernel outputs within "
           f"2e-2 of the plain core_attention on the same q/k/v, max |err| "
           f"{layer_err:.4g}", flush=True)
+    prefill_ms = _prefill_ms(torch, prefill, params, prompt)
+    print(f"serve (a) prefill timed alone: {prefill_ms:.3f} ms = "
+          f"{PREFILL_TOKENS / prefill_ms * 1e3:.1f} tokens/s (CUDA events "
+          f"around one prefill, median of {PREFILL_TIMES})", flush=True)
 
     plain_logits = prefill_plain(params, prompt)
     torch.cuda.synchronize()
@@ -852,10 +893,12 @@ def serve_path(torch, dev) -> dict:
     _require(dec_err is not None, "the f32 launcher check did not run")
     del params
     keep = {"global": records[1], "local": records[0]}
+    windows = [kw["window"] for _, _, _, kw, _ in records]
     del records
     torch.cuda.empty_cache()
     return {"launches": launches["flash_attention"], "layers": keep,
-            "max_abs_err": layer_err}
+            "windows": windows, "max_abs_err": layer_err,
+            "prefill_ms": prefill_ms}
 
 
 def gather_path(torch, dev, served) -> dict:
@@ -876,6 +919,8 @@ def gather_path(torch, dev, served) -> dict:
     launches = dict(cuda.LAUNCHES)
     _require(launches["flash_attention_gather"] == 1,
              f"gather op launches {launches}")
+    _require(cuda.FLASH_BODIES == {"wgmma": 1, "cuda_cores": 0},
+             f"gather op flash bodies {cuda.FLASH_BODIES}, not wgmma")
     want = flash_attention_plain(q, k, v, causal=True, window=kw["window"],
                                  softcap=kw["softcap"], q_rows=rows)
     err = _close(torch, out, want, ATTN_TOL["bfloat16"],
@@ -883,8 +928,8 @@ def gather_path(torch, dev, served) -> dict:
     _require(not bool(out[rows < 0].any()), "gather op: dead rows not zero")
     print(f"gather path: flash_attention(q_rows=...) on q "
           f"{tuple(q.shape)}, {int((rows < 0).sum())} dead rows exact "
-          f"zeros, max |err| {err:.4g} vs plain; launches {launches}",
-          flush=True)
+          f"zeros, max |err| {err:.4g} vs plain; launches {launches}, "
+          f"flash bodies {cuda.FLASH_BODIES}", flush=True)
     return {"launches": launches["flash_attention_gather"], "rows": rows,
             "max_abs_err": err}
 
@@ -898,6 +943,42 @@ def _live_pairs(S: int, window, rows=None) -> int:
         live = (rows.cpu().numpy() >= 0)
         return int((live * per_row[None]).sum())
     return int(per_row.sum())
+
+
+def _body_of(torch, fn, *args) -> str:
+    """The flash body one call of ``fn`` ran on."""
+    from repro_torch import cuda
+    torch.cuda.synchronize()
+    before = dict(cuda.FLASH_BODIES)
+    fn(*args)
+    torch.cuda.synchronize()
+    ran = [b for b, n in cuda.FLASH_BODIES.items() if n != before[b]]
+    _require(len(ran) == 1, f"not one flash launch: {cuda.FLASH_BODIES}")
+    return ran[0]
+
+
+def _kv_read_bytes(q, k, window, body) -> int:
+    """The k/v bytes the body's tiling reads: every CTA (q tile, q head,
+    batch) reads each kv tile it visits, k and v, from L2 or device
+    memory."""
+    from repro_torch.kernels.attention.kernel import (WGMMA_BQ,
+                                                      tile_classes, wgmma_bk)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    bq, bk = (WGMMA_BQ, wgmma_bk(D)) if body == "wgmma" else (64, 64)
+    tiles = sum(j_hi - j_lo for j_lo, j_hi, _, _ in
+                tile_classes(Sq, Sk, bq, bk, True, window))
+    return 2 * tiles * bk * D * k.element_size() * H * B
+
+
+def _attn_stats(row, ms, flops, kv_bytes) -> str:
+    """TFLOP/s, share of the bound and k/v bytes read, into ``row`` and
+    as text."""
+    row.update(tflops=flops / ms / 1e9, bound_share=row["bound_ms"] / ms,
+               kv_read_bytes=kv_bytes)
+    return (f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of the "
+            f"bound, k/v read {kv_bytes / 1e9:.3f} GB = "
+            f"{kv_bytes / ms / 1e9:.2f} TB/s")
 
 
 def _flex(torch, q, k, v, window, cap):
@@ -964,6 +1045,9 @@ def attention_timing(torch, served, gathered, parity_err) -> list[dict]:
         def plain(q, k, v, rows=rows):
             return flash_attention_plain(q, k, v, causal=True, window=win,
                                          softcap=cap, q_rows=rows)
+        body = _body_of(torch, kern, q, k, v)
+        _require(body == ("cuda_cores" if unaligned else "wgmma"),
+                 f"{label}: ran on the {body} body")
         ms, reps = time_long_ms(torch, kern, q, k, v)
         plain_ms, plain_reps = time_long_ms(torch, plain, q, k, v)
         dev_ms = device_ms(torch, name, kern, q, k, v, reps=LONG_REPS)
@@ -979,6 +1063,9 @@ def attention_timing(torch, served, gathered, parity_err) -> list[dict]:
             got = kern(q, k, v)
             err = _close(torch, got, plain(q, k, v), ATTN_TOL["bfloat16"],
                          ATTN_TOL["bfloat16"], f"{label} vs plain")
+            glob = rows_out["flash_attention"][0]
+            library = glob["library_call"]
+            library_ms = glob["library_ms"]
             note = (f"max |err| vs plain {err:.4g}; the library call is the "
                     f"global layer's")
         elif rows is None:
@@ -996,21 +1083,31 @@ def attention_timing(torch, served, gathered, parity_err) -> list[dict]:
         else:
             note = ("none is one call: no library call gathers q rows and "
                     "attends in one")
-        row = {"case": label, "ms": ms, "device_ms": dev_ms, "reps": reps,
-               "plain_ms": plain_ms, "plain_reps": plain_reps,
+        row = {"case": label, "body": body, "ms": ms, "device_ms": dev_ms,
+               "reps": reps, "plain_ms": plain_ms, "plain_reps": plain_reps,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "operations": flops, "live_pairs": pairs,
                "library_ms": library_ms, "library_call": library,
                "library_note": note}
+        stats = _attn_stats(row, ms, flops,
+                            _kv_read_bytes(q, k, win, body))
         print(f"{name:>22} | {label}: {ms:.4f} ms [device "
               f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms] "
-              f"({reps}; bound {row['bound_ms']:.4f} ms by "
-              f"{row['bound_by']}, {flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"({reps}; {body} body; bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}, {stats}), plain "
               f"{plain_ms:.4f} ms ({plain_reps}), library "
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
               f"[{note}]", flush=True)
         rows_out[name].append(row)
+    by_window = {None: rows_out["flash_attention"][0]["ms"],
+                 served["layers"]["local"][3]["window"]:
+                 rows_out["flash_attention"][1]["ms"]}
+    attn_ms = sum(by_window[w] for w in served["windows"])
+    print(f"serve (a) attention share of the {SERVE_ARCH} prefill: "
+          f"{attn_ms:.3f} ms of its {len(served['windows'])} layers (the "
+          f"timed global and local cases) / {served['prefill_ms']:.3f} ms "
+          f"= {attn_ms / served['prefill_ms']:.3f}", flush=True)
     result = []
     for name, source, tpu, info in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1456,20 +1553,23 @@ def jamba_serve_path(torch, dev) -> dict:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         launches = dict(cuda.LAUNCHES)
+        bodies = dict(cuda.FLASH_BODIES)
     finally:
         for module, name, real in reals:
             setattr(module, name, real)
     print(f"jamba (a) prefill: B=1 S={PREFILL_TOKENS} in "
           f"{prefill_s * 1e3:.3f} ms = {PREFILL_TOKENS / prefill_s:.1f} "
           f"tokens/s (host clock around the step, synchronized; the "
-          f"residual and input recording included), launches {launches}",
-          flush=True)
+          f"residual and input recording included), launches {launches}, "
+          f"flash bodies {bodies}", flush=True)
     _require(launches["mamba_scan"] == n_mamba == 7,
              f"prefill launched mamba_scan {launches['mamba_scan']} times, "
              f"not {n_mamba}")
     _require(launches["flash_attention"] == n_attn == 1,
              f"prefill launched flash_attention "
              f"{launches['flash_attention']} times, not {n_attn}")
+    _require(bodies == {"wgmma": n_attn, "cuda_cores": 0},
+             f"prefill flash bodies {bodies}, not all wgmma")
     _require(len(scans) == n_mamba and len(resid) == cfg.n_layers,
              "not one scan per mamba layer")
     _require(logits.shape == (1, PREFILL_TOKENS, V)
@@ -1513,6 +1613,10 @@ def jamba_serve_path(torch, dev) -> dict:
           f"{PREFILL_TOKENS} = {agree / PREFILL_TOKENS:.4f} of positions; "
           f"per 1024 positions, in order: {per_block}", flush=True)
     del plain_logits, logits
+    prefill_ms = _prefill_ms(torch, prefill, params, prompt)
+    print(f"jamba (a) prefill timed alone: {prefill_ms:.3f} ms = "
+          f"{PREFILL_TOKENS / prefill_ms * 1e3:.1f} tokens/s (CUDA events "
+          f"around one prefill, median of {PREFILL_TIMES})", flush=True)
 
     # (b) the launcher's loop in bf16 (reported: at batch 4 the capacity
     # dispatch's C is 1 and drops pairs), then the kernel prefill of its
@@ -1601,7 +1705,8 @@ def jamba_serve_path(torch, dev) -> dict:
     print(f"jamba: device memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB allocated during the phase", flush=True)
     return {"launches": launches["mamba_scan"], "scan": keep["scan"],
-            "attn": keep["attn"], "max_abs_err": layer_err}
+            "attn": keep["attn"], "max_abs_err": layer_err,
+            "prefill_ms": prefill_ms}
 
 
 def _sm_clock_hz() -> float:
@@ -1704,6 +1809,8 @@ def jamba_attention_timing(torch, served, dev_ms) -> dict:
     def plain(q, k, v):
         return flash_attention_plain(q, k, v, causal=True, window=win,
                                      softcap=cap)
+    body = _body_of(torch, kern, q, k, v)
+    _require(body == "wgmma", f"{label}: ran on the {body} body")
     ms, reps = time_long_ms(torch, kern, q, k, v)
     plain_ms, plain_reps = time_long_ms(torch, plain, q, k, v)
     B, S, H, D = q.shape
@@ -1722,17 +1829,18 @@ def jamba_attention_timing(torch, served, dev_ms) -> dict:
         library, library_ms = None, None
         note = (f"none is one call: flex_attention failed on this card "
                 f"({type(e).__name__}: {str(e)[:200]})")
-    row = {"case": label, "ms": ms, "device_ms": dev_ms, "reps": reps,
-           "plain_ms": plain_ms, "plain_reps": plain_reps,
+    row = {"case": label, "body": body, "ms": ms, "device_ms": dev_ms,
+           "reps": reps, "plain_ms": plain_ms, "plain_reps": plain_reps,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "operations": flops, "live_pairs": pairs,
            "library_ms": library_ms, "library_call": library,
            "library_note": note}
+    stats = _attn_stats(row, ms, flops, _kv_read_bytes(q, k, win, body))
     print(f"{'flash_attention':>22} | {label}: {ms:.4f} ms [device "
           f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms] ({reps}; "
-          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
-          f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
+          f"{body} body; bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']}, {stats}), plain {plain_ms:.4f} ms "
           f"({plain_reps}), library "
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
           f"[{note}]", flush=True)

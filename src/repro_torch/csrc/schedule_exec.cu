@@ -71,9 +71,10 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -123,44 +124,7 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-// ---- mbarriers and bulk copies (PTX) ----------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Spin until the phase of the given parity has completed.  A wait that
-// outlasts kWaitCycles (about 17 s) faults the launch instead of hanging
-// the card.
-constexpr long long kWaitCycles = 1LL << 35;
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > kWaitCycles) __trap();
-  }
-}
+// ---- bulk copies (PTX; mbarriers in hopper.cuh) ----------------------
 
 // One box of a 3-D tensor map (columns, chunk, rows) into shared memory;
 // completion counted in bytes on the mbarrier.
@@ -197,12 +161,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// Make this thread's generic-proxy writes to shared memory visible to
-// later bulk copies (the async proxy).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // Barrier over the consumer warps only (named barrier 1).
@@ -392,25 +350,6 @@ template <typename T> constexpr CUtensorMapDataType kMapType =
     CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 template <> constexpr CUtensorMapDataType kMapType<__nv_bfloat16> =
     CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the process already runs on
-// (looked up at run time, so the library links against the runtime only).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* h = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
-    if (!h) h = dlopen("libcuda.so.1", RTLD_LAZY);
-    if (h) fn = reinterpret_cast<EncodeTiled>(
-        dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
 
 // The tensor [rows, chunks, chunk_len] as a 3-D map with boxes of
 // (TILE columns, 1 chunk, 2^k rows), for every k set in `classes`.

@@ -4,9 +4,10 @@ The kernels under ``csrc/`` have a plain C interface.  Each source is
 compiled with ``nvcc`` for ``sm_90a`` (all sources at once, one process
 each), linked into one shared library under ``build/repro_torch/`` at
 the repository root, and loaded with ``ctypes``.  The library's file
-name carries a hash of the sources and flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing here runs at
-import time: the first kernel launch builds and loads.
+name carries a hash of the sources, the shared header
+``csrc/hopper.cuh`` and the flags, so an edited source is rebuilt and
+a stale library is never loaded.  Nothing here runs at import time:
+the first kernel launch builds and loads.
 
 Every kernel wrapper counts its launches in ``LAUNCHES`` (one per
 kernel launch, never for the plain PyTorch version a CPU tensor takes).
@@ -32,6 +33,10 @@ LAUNCHES = {"schedule_exec": 0, "rmsnorm": 0, "rmsnorm_reduce": 0,
             "flash_attention": 0, "flash_attention_gather": 0, "wkv6": 0,
             "mamba_scan": 0}
 
+# flash-attention launches by the body that ran them (the Hopper wgmma
+# body or a CUDA-core body), since the last reset_launches()
+FLASH_BODIES = {"wgmma": 0, "cuda_cores": 0}
+
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None     # wall time of this process's build
 
@@ -56,6 +61,9 @@ _SIGNATURES = {
     # the same with q_rows after v
     "repro_flash_attention_gather": [_i] + [_vp] * 5 + [_i64] * 9
                                     + [_i] * 6 + [_f, _f, _i, _i, _i, _vp],
+    # which body those run: dtype, q, k, v, out, strides, B, Sq, Sk, H,
+    # K, D
+    "repro_flash_attention_body": [_i] + [_vp] * 4 + [_i64] * 9 + [_i] * 6,
     # r/k/v dtype, w dtype, u dtype, r, k, v, w, u, y, r/k/v/w strides
     # over (b, t, h), B, T, H, N, stream
     "repro_wkv6": [_i] * 3 + [_vp] * 6 + [_i64] * 12 + [_i] * 4 + [_vp],
@@ -67,12 +75,17 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, FLASH_BODIES):
+        for k in counts:
+            counts[k] = 0
 
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc() -> str:
@@ -90,7 +103,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode() + src.read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 

@@ -8,9 +8,13 @@ an f32 accumulator, GQA (kv head = q head // group), causal and window
 masks and a tanh logit softcap.  With ``q_rows`` it runs the
 dispatch-gather prologue: output row t attends with token-order q row
 ``q_rows[b, t]``, and an index outside [0, Sq) gives an exact zero row.
-bf16 inputs with a head dim that is a multiple of 8 run on the tensor
-cores (the attention weights rounded to bf16 for the P.V product); f32,
-and other bf16 shapes, on the CUDA cores in f32.
+bf16 inputs with a head dim that is a multiple of 8 and 16-byte aligned
+rows run on the Hopper body (wgmma on the tensor cores, k/v tiles
+through a TMA ring, the attention weights rounded to bf16 for the P.V
+product); f32, and other bf16 shapes, on the CUDA cores in f32.  Each
+launch counts in ``cuda.FLASH_BODIES`` under the body that ran it.
+``tile_classes`` gives the kv tiles the Hopper body visits for each q
+tile, and which of them take no mask.
 
 The wrapper takes the plain PyTorch version only for a CPU tensor; on a
 CUDA tensor it launches the kernel or raises.
@@ -24,6 +28,48 @@ from repro_torch.kernels.attention.ref import (attention_ref,
                                                gathered_attention_ref)
 
 MAX_HEAD_DIM = 256        # the f32 tiles fill shared memory here
+WGMMA_BQ = 128            # the Hopper body's query rows per CTA
+
+
+def wgmma_bk(head_dim: int) -> int:
+    """Keys per kv tile of the Hopper body at this head dim."""
+    return 64 if head_dim > 128 else 128
+
+
+def tile_classes(Sq: int, Sk: int, bq: int, bk: int, causal: bool,
+                 window: int | None) -> list[tuple[int, int, int, int]]:
+    """Per q tile of ``bq`` rows, ``(j_lo, j_hi, i_lo, i_hi)``: the kernel
+    visits kv tiles ``j_lo <= j < j_hi`` of ``bk`` keys, and the interior
+    ones ``i_lo <= j < i_hi`` hold only live scores, so they take no
+    mask; the others it visits are edge tiles.  A tile it skips holds
+    only masked scores.  A q tile with a row that has no live key
+    (``window`` set and ``t >= Sk + window - 1``) visits every kv tile.
+    Mirrors ``kv_range`` in ``csrc/flash_attention.cu`` line for line."""
+    out = []
+    for q0 in range(0, Sq, bq):
+        q_last = min(q0 + bq, Sq) - 1
+        k_lo, k_hi = 0, Sk
+        dead_row = window is not None and (window < 1
+                                           or q_last >= Sk + window - 1)
+        if not dead_row:
+            if causal:
+                k_hi = min(k_hi, q_last + 1)
+            if window is not None:
+                k_lo = max(0, q0 - window + 1)
+        j_lo = k_lo // bk
+        j_hi = (k_hi + bk - 1) // bk
+        i_lo = j_lo
+        i_hi = min(j_hi, Sk // bk)
+        if causal:
+            i_hi = min(i_hi, (q0 + 1) // bk)
+        if window is not None:
+            lo = q_last - window + 1
+            if lo > 0:
+                i_lo = min(max(i_lo, (lo + bk - 1) // bk), j_hi)
+        if i_hi < i_lo:
+            i_hi = i_lo
+        out.append((j_lo, j_hi, i_lo, i_hi))
+    return out
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None,
@@ -102,4 +148,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             name = "flash_attention_gather"
     cuda.check(err, name)
     cuda.LAUNCHES[name] += 1
+    wgmma = lib.repro_flash_attention_body(code, *args, out.data_ptr(),
+                                           *strides, *tail[:6])
+    cuda.FLASH_BODIES["wgmma" if wgmma else "cuda_cores"] += 1
     return out

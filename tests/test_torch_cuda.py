@@ -15,9 +15,11 @@ every row at chunks=2, are no whole 16 B) and its aligned TMA path
 bf16 ulp of their plain versions (the f32 mean is reduced in another
 order); the flash-attention kernels are within the reference's kernel
 tolerances of their plain version, ``3e-5`` in f32 and ``2e-2`` in bf16
-(another tile order of the online softmax; in bf16 the tensor-core body
-also rounds the attention weights to bf16), and the gather kernel's
-dead rows are exact zeros; the wkv6 kernel is within the reference's
+(another tile order of the online softmax; in bf16 the Hopper wgmma
+body also rounds the attention weights to bf16; the new tests also
+assert which body ran: wgmma for aligned bf16, the CUDA-core body for
+bf16 off 16-byte alignment), and the gather kernel's dead rows are
+exact zeros; the wkv6 kernel is within the reference's
 kernel tolerances of its plain version, ``2e-5`` with f32 inputs and
 ``2e-2`` with bf16 ones (another order of the f32 sums over the head);
 so is the selective-scan kernel (another order of the f32 sum over the
@@ -300,6 +302,15 @@ def test_flash_attention_gather_kernel_matches_plain(cuda_device, dtype):
         assert not got[torch.from_numpy(rows < 0)].any()
 
 
+def _on_body(body, fn):
+    """``fn()``, asserting that it ran one flash launch on ``body``."""
+    n0 = cuda.FLASH_BODIES[body]
+    out = fn()
+    torch.cuda.synchronize()
+    assert cuda.FLASH_BODIES[body] == n0 + 1, dict(cuda.FLASH_BODIES)
+    return out
+
+
 def test_flash_attention_kernel_fully_masked_rows(cuda_device):
     """Rows with no live key (Sq >= Sk + window) weigh every key equally,
     as the reference does."""
@@ -310,6 +321,92 @@ def test_flash_attention_kernel_fully_masked_rows(cuda_device):
         got = flash_attention_bshd(q, k, v, causal=causal, window=8)
         want = flash_attention_plain(q, k, v, causal=causal, window=8)
         torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+
+
+def test_flash_attention_kernel_fully_masked_rows_bf16(cuda_device):
+    """The same on the Hopper body (Sk = 40 is one ragged kv tile)."""
+    rng = np.random.default_rng(12)
+    q, k, v = _attn_inputs(rng, cuda_device, torch.bfloat16, 1, 200, 40, 2,
+                           1, 64)
+    for causal in (True, False):
+        got = _on_body("wgmma", lambda: flash_attention_bshd(
+            q, k, v, causal=causal, window=8))
+        want = flash_attention_plain(q, k, v, causal=causal, window=8)
+        torch.testing.assert_close(got, want, **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("K", [8, 4, 1])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_attention_wgmma_long(cuda_device, D, K):
+    """bf16 at 1024 rows on the Hopper body: 8 q tiles of 128, enough kv
+    tiles to wrap the stage ring and to reach interior (unmasked) tiles,
+    GQA groups 1/2/8, every mask/softcap variant."""
+    rng = np.random.default_rng(D + K)
+    q, k, v = _attn_inputs(rng, cuda_device, torch.bfloat16, 1, 1024, 1024,
+                           8, K, D)
+    for kw in ATTN_VARIANTS + [dict(causal=True, window=300)]:
+        got = _on_body("wgmma", lambda: flash_attention_bshd(q, k, v, **kw))
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL[torch.bfloat16],
+                                   msg=lambda m: f"{kw}: {m}")
+
+
+@pytest.mark.parametrize("Sq,Sk,D", [(1024, 700, 128), (500, 1024, 256),
+                                     (300, 1024, 40), (1024, 333, 96),
+                                     (400, 500, 136)])
+def test_flash_attention_wgmma_ragged(cuda_device, Sq, Sk, D):
+    """Sq != Sk, ragged last tiles, and head dims padded to 64/128/256
+    (the tensor maps' out-of-bounds zero fill, whole boxes past D at
+    136)."""
+    rng = np.random.default_rng(Sq + Sk + D)
+    q, k, v = _attn_inputs(rng, cuda_device, torch.bfloat16, 2, Sq, Sk, 4,
+                           2, D)
+    for kw in ATTN_VARIANTS:
+        got = _on_body("wgmma", lambda: flash_attention_bshd(q, k, v, **kw))
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL[torch.bfloat16],
+                                   msg=lambda m: f"{kw}: {m}")
+
+
+def test_flash_attention_wgmma_gather_long(cuda_device):
+    """The gather prologue on the Hopper body at 1024 rows, 1/8 of them
+    dead (exact zeros)."""
+    B, S, H, K, D = 2, 1024, 8, 4, 256
+    rng = np.random.default_rng(14)
+    q, k, v = _attn_inputs(rng, cuda_device, torch.bfloat16, B, S, S, H, K,
+                           D)
+    rows = np.stack([rng.permutation(S) for _ in range(B)]).astype(np.int32)
+    rows[:, ::8] = -1
+    rows[0, 5] = S + 3                          # outside [0, Sq): dead too
+    rows_t = torch.from_numpy(rows).to(cuda_device)
+    for kw in ATTN_VARIANTS:
+        got = _on_body("wgmma", lambda: flash_attention_bshd(
+            q, k, v, q_rows=rows_t, **kw))
+        want = flash_attention_plain(q, k, v, q_rows=rows_t, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL[torch.bfloat16])
+        dead = torch.from_numpy((rows < 0) | (rows >= S))
+        assert not got[dead].any()
+
+
+def test_flash_attention_misaligned_bf16_runs_on_cuda_cores(cuda_device):
+    """bf16 rows off 16-byte alignment cannot be described to the TMA:
+    the same call runs on the CUDA-core body, and matches."""
+    rng = np.random.default_rng(15)
+    q, k, v = _attn_inputs(rng, cuda_device, torch.bfloat16, 1, 256, 256, 4,
+                           2, 128)
+
+    def shifted(t):                             # storage 2 bytes past 16
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        u = buf[1:].view(t.shape)
+        u.copy_(t)
+        return u
+    qs, ks, vs = (shifted(t) for t in (q, k, v))
+    for kw in (dict(causal=True), dict(causal=True, window=48,
+                                       softcap=30.0)):
+        got = _on_body("cuda_cores",
+                       lambda: flash_attention_bshd(qs, ks, vs, **kw))
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL[torch.bfloat16])
 
 
 def test_flash_attention_op_grad_and_errors(cuda_device):
