@@ -32,8 +32,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              tile, buffers, CTAs per SM, grid and path, which must be
              the aligned TMA path), and the fused ``rmsnorm_allreduce`` /
              plain ``rmsnorm`` ops at qwen3-14b and gemma2-2b widths;
-             counters read; every output checked against its plain
-             version and the collective's meaning;
+             counters read (every rmsnorm launch on the vector body,
+             each case printed with its tiling); every output checked
+             against its plain version and the collective's meaning;
 4. serve   — gemma2-2b at full width (26 layers, random weights from a
              seeded generator on the card): (a) counters reset, the
              kernel prefill of one 8192-token prompt, counters read (26
@@ -51,13 +52,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 5. rwkv    — the wkv6 kernel against its plain version on random floats
              (the reference's sweep shapes, head size 64 at 40 heads, a T
              that is no multiple of 64; f32, bf16 and the model's mix of
-             bf16 r/k/v with f32 w), then rwkv6-3b at full width and
-             depth (32 layers, random bf16 weights from a seeded
-             generator on the card): (a) counters reset, the kernel
-             prefill of one 8192-token prompt, counters read (32 wkv6
-             launches), each layer's kernel output checked against
-             ``wkv6_plain`` on the same inputs and the logits reported
-             against the plain prefill; (b) the launcher's loop at batch
+             bf16 r/k/v with f32 w), the chunk-parallel scan's edges (T
+             below, at and one past a chunk, a multiple of it, 200 and
+             8192, head size 128, B = 2) and decay extremes (exact 0s
+             and 1s, whole chunks of zero decay), then rwkv6-3b at full
+             width and depth (32 layers, random bf16 weights from a
+             seeded generator on the card): (a) counters reset, the
+             kernel prefill of one 8192-token prompt, counters read (32
+             wkv6 calls, each printed with its chunking), each layer's
+             kernel output checked against ``wkv6_plain`` on the same
+             inputs, the prefill timed alone (CUDA events, median of 3)
+             and the logits reported against the plain prefill; (b) the
+             launcher's loop at batch
              4, prompt 32, gen 16 on the O(1) decode state, in bf16
              (reported) and with the weights widened to f32 (held to the
              model tolerance against the kernel prefill);
@@ -84,8 +90,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              call: CUDA events around 20 calls enqueued back to back,
              divided by 20, median of 5 such batches (after warm-up;
              fewer for calls over 100 ms, stated in the line); the
-             kernel's own device time read by name from
-             ``torch.profiler``; beside the bound (bytes at 3.35 TB/s,
+             kernel's own device time per call read by name from
+             ``torch.profiler`` (summed over the call's kernels: wkv6's
+             phases, each printed); for rmsnorm the host us per call
+             (200 calls enqueued without a synchronize); wkv6's chunk,
+             grids, scratch bytes and share of the prefill; beside the
+             bound (bytes at 3.35 TB/s,
              or operations at 67 TFLOP/s f32 / 989 TFLOP/s bf16 tensor
              cores for attention / the exps of the scan at 16 per clock
              per SM on the special-function units, at the card's top SM
@@ -169,7 +179,8 @@ def main() -> int:
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["cases"].append(jamba_attention_timing(torch, jamba_served,
                                                  early["jamba_attention"]))
-    kernels += wkv6_timing(torch, rwkv_served, wkv_err, early["wkv6"])
+    kernels += wkv6_timing(torch, rwkv_served, wkv_err, early["wkv6"],
+                           early["wkv6_split"])
     kernels += mamba_scan_timing(torch, jamba_served, scan_err,
                                  early["mamba_scan"])
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -293,6 +304,7 @@ def main_path(torch, dev) -> list[dict]:
     from repro_torch.core.kernel_lowering import get_kernel_exec
     from repro_torch.core.transport import KernelTransport
     from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_body
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -351,6 +363,11 @@ def main_path(torch, dev) -> list[dict]:
           f"(host clock), launches {launches}", flush=True)
     for name in ("schedule_exec", "rmsnorm_reduce", "rmsnorm"):
         _require(launches[name] > 0, f"main path never launched {name}")
+    bodies = dict(cuda.RMSNORM_BODIES)
+    print(f"main path: rmsnorm launches by body {bodies}", flush=True)
+    _require(bodies == {"vector": launches["rmsnorm"]
+                        + launches["rmsnorm_reduce"], "scalar": 0},
+             "a main-path rmsnorm call did not take the vector body")
     _require(launches["schedule_exec"] == len(TRANSPORT_CASES),
              "transport: not one launch per run")
     for c in cases:
@@ -366,6 +383,16 @@ def main_path(torch, dev) -> list[dict]:
                   flush=True)
             _require(run["path"] == "aligned TMA",
                      f"{c['label']}: took the {run['path']} path")
+        else:
+            x = c["args"][0]
+            out = c["out"]
+            c["body"] = rmsnorm_body(x.shape[-1], x.dtype,
+                                     (x.data_ptr() | out.data_ptr()) % 16)
+            print(f"rmsnorm | {c['label']}: {c['body'][0]} body, "
+                  f"{c['body'][1]} 16-byte vectors a thread, "
+                  f"{c['body'][2]} threads a CTA", flush=True)
+            _require(c["body"][0] == "vector",
+                     f"{c['label']}: would take the {c['body'][0]} body")
         check_output(torch, c)
     return cases
 
@@ -458,6 +485,26 @@ def time_ms(torch, fn, *args, reps=REPS, batches=BATCHES) -> float:
     return statistics.median(per_call)
 
 
+HOST_CALLS = 200
+
+
+def host_us(torch, fn, *args, calls=HOST_CALLS) -> float:
+    """Host microseconds per call: the wall time to enqueue ``calls``
+    calls back to back without a synchronize, divided by ``calls`` (after
+    warm-up and a synchronize).  Below the device time per call, the
+    host keeps ahead of the card; above it, the call is bound by its
+    host path."""
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def time_long_ms(torch, fn, *args) -> tuple[float, str]:
     """``time_ms`` with REPS x BATCHES, or LONG_REPS x LONG_BATCHES when
     one call takes longer than LONG_CALL_MS; returns (ms, the reps
@@ -478,23 +525,34 @@ def time_long_ms(torch, fn, *args) -> tuple[float, str]:
 
 
 KERNEL_SYMBOLS = {"schedule_exec": "schedule_exec_kernel",
-                  "rmsnorm_reduce": "rmsnorm_rows_kernel",
-                  "rmsnorm": "rmsnorm_rows_kernel",
+                  # either body: rmsnorm_vec_kernel (16-byte vectors, rows
+                  # in registers) or rmsnorm_rows_kernel (scalar)
+                  "rmsnorm_reduce": "rmsnorm_",
+                  "rmsnorm": "rmsnorm_",
                   # either body: flash_attention_wgmma_kernel (bf16,
                   # Hopper) or flash_attention_kernel (CUDA cores)
                   "flash_attention": "flash_attention_",
                   "flash_attention_gather": "flash_attention_",
-                  "wkv6": "wkv6_kernel", "mamba_scan": "mamba_scan_kernel"}
+                  # its phases: wkv6_state_kernel, wkv6_carry_kernel,
+                  # wkv6_out_kernel (one call runs one to three)
+                  "wkv6": "wkv6_", "mamba_scan": "mamba_scan_kernel"}
 
 
-def device_ms(torch, kernel: str, fn, *args, reps=REPS) -> float | None:
-    """The kernel's own device time per launch, read by its symbol from
-    a ``torch.profiler`` trace of ``reps`` calls (None when the trace
-    holds no device time for it).  On the card, traces taken late in
-    this script, after a plain recurrence (about 10^5 small launches a
-    call) or jamba's plain attention had been timed, held the launches'
-    host records but no device records; the same kernels profiled
-    before those timings had their device time (``early_device_ms``)."""
+def device_ms(torch, kernel: str, fn, *args, reps=REPS,
+              split: dict | None = None) -> float | None:
+    """The kernel's own device time per call, read by its symbol from a
+    ``torch.profiler`` trace of ``reps`` calls: for each kernel whose
+    symbol matches, its device time over the launches the trace
+    recorded, summed over those kernels (a call runs each of them once:
+    wkv6 runs up to three phases).  ``split``, when given, receives each
+    matched kernel's device ms per launch by name.  None when the trace
+    holds no device time for it.  On the card, traces taken late in this
+    script, after a plain recurrence (about 10^5 small launches a call)
+    or jamba's plain attention had been timed, held the launches' host
+    records but only some or none of their device records, so the time
+    is taken over the records present; the kernels timed last are
+    profiled before those timings (``early_device_ms``)."""
+    import re
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
@@ -502,15 +560,18 @@ def device_ms(torch, kernel: str, fn, *args, reps=REPS) -> float | None:
         for _ in range(reps):
             fn(*args)
         torch.cuda.synchronize()
-    us = launches = 0
+    ms = 0.0
     rows = prof.key_averages()
     for e in rows:
-        if KERNEL_SYMBOLS[kernel] in e.key:
-            us += (getattr(e, "device_time_total", None)
-                   or getattr(e, "cuda_time_total", 0))
-            launches += e.count
-    if launches and us:
-        return us / launches / 1e3
+        if KERNEL_SYMBOLS[kernel] in e.key and e.count:
+            t = (getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0)) / e.count / 1e3
+            ms += t
+            if split is not None:
+                name = re.search(r"(\w+_kernel)", e.key)
+                split[name.group(1) if name else e.key[:60]] = t
+    if ms:
+        return ms
     print(f"device_ms({kernel}): the trace holds no device time for "
           f"{KERNEL_SYMBOLS[kernel]!r}; its {len(rows)} keys: "
           f"{[(e.key[:60], e.count) for e in rows][:8]}", flush=True)
@@ -576,6 +637,8 @@ def timing(torch, cases) -> list[dict]:
         else:
             x, scale = args
             d = x.shape[-1]
+            extra["host_us"] = host_us(torch, c["call"], *args)
+            extra["body"] = list(c["body"])
             out_bytes = _nbytes(c["out"])
             nbytes = _nbytes(x, scale) + out_bytes
             p = x.shape[0] if c["kernel"] == "rmsnorm_reduce" else 1
@@ -1142,6 +1205,14 @@ WKV_SHAPES = [(1, 16, 1, 8), (2, 64, 3, 16), (1, 128, 2, 32),
               (1, 70, 4, 128)]
 WKV_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
               ("bfloat16", "float32")]         # last: the model's mix
+# the chunk-parallel scan's edges, B = 2 so that the batch offsets of
+# its scratch are exercised: (B, T, H, N, chunk), chunk None for the
+# wrapper's own pick: T below, at and one past a chunk, a multiple of
+# it, T = 200, T = 8192 over many chunks, head size 128
+WKV_EDGES = [(2, 63, 4, 64, 64), (2, 64, 4, 64, 64), (2, 65, 4, 64, 64),
+             (2, 512, 4, 64, 64), (2, 200, 40, 64, None),
+             (2, 8192, 8, 64, None), (2, 300, 2, 128, 128)]
+WKV_EXTREME_CHUNKS = [16, 64]    # decay extremes at these chunks
 RWKV_ARCH = "rwkv6-3b"
 RWKV_GROUP = 8                   # layers per plain-version call
 
@@ -1160,6 +1231,7 @@ def _wkv_inputs(torch, gen, dev, B, T, H, N, rkv, wdt):
 def wkv6_parity(torch, dev) -> float:
     """The kernel against its plain version; returns the max |err|."""
     from repro_torch import cuda
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.kernels.wkv6.kernel import wkv6_bthn, wkv6_plain
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -1185,6 +1257,55 @@ def wkv6_parity(torch, dev) -> float:
           f"with f32 w) within atol=rtol 2e-5 (all f32) / 2e-2 (bf16 "
           f"inputs); max |err| {worst}; {time.perf_counter() - t0:.2f} s",
           flush=True)
+    t0 = time.perf_counter()
+    runs = []
+    for B, T, H, N, chunk in WKV_EDGES:
+        for rkv, wdt in WKV_DTYPES:
+            args = _wkv_inputs(torch, gen, dev, B, T, H, N, rkv, wdt)
+            n0 = cuda.LAUNCHES["wkv6"]
+            got = wkv6_bthn(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            run = dict(wkv_kernel.LAST_LAUNCH)
+            C = chunk or wkv_kernel.wkv6_chunk(B, T, H, N)
+            _require(cuda.LAUNCHES["wkv6"] == n0 + 1
+                     and run["chunk"] == C and run["chunks"] == -(-T // C),
+                     f"wkv6 T={T} chunk {chunk}: launch record {run}")
+            tol = WKV_TOL["float32" if rkv == wdt == "float32"
+                          else "bfloat16"]
+            key = f"r/k/v {rkv}, w {wdt}"
+            err = _close(torch, got, wkv6_plain(*args), tol, tol,
+                         f"wkv6 B={B} T={T} H={H} N={N} chunk {C} {key}")
+            worst[key] = max(worst[key], err)
+            checked += 1
+        runs.append(f"T={T} N={N}: chunk {run['chunk']} x {run['chunks']}")
+    for C in WKV_EXTREME_CHUNKS:
+        for rkv in ("float32", "bfloat16"):
+            B, T, H, N = 2, 5 * C + 3, 3, 64
+            r, k, v, _, u = _wkv_inputs(torch, gen, dev, B, T, H, N, rkv,
+                                        "float32")
+            # w = exp(-exp(x)), x up to +5: exactly 0 in f32 past ~4.6;
+            # channels of exact 0 and 1; a chunk of zero decays in every
+            # head, and one more in one head of one batch row
+            x = 8.0 * torch.rand((B, T, H, N), generator=gen,
+                                 device=dev) - 3.0
+            w = torch.exp(-torch.exp(x))
+            w[..., 0] = 0.0
+            w[..., 1] = 1.0
+            w[:, C:2 * C] = 0.0
+            w[1, 3 * C:4 * C, 2] = 0.0
+            got = wkv6_bthn(r, k, v, w, u, chunk=C)
+            _require(bool(torch.isfinite(got).all()),
+                     f"wkv6 decay extremes chunk {C}: non-finite")
+            tol = WKV_TOL["float32" if rkv == "float32" else "bfloat16"]
+            key = f"decay extremes, r/k/v {rkv}"
+            worst[key] = max(worst.get(key, 0.0), _close(
+                torch, got, wkv6_plain(r, k, v, w, u), tol, tol,
+                f"wkv6 decay extremes chunk {C} r/k/v {rkv}"))
+            checked += 1
+    print(f"wkv6 parity, chunk edges and decay extremes: {checked} kernel "
+          f"calls in all ({'; '.join(runs)}; w with exact 0s, 1s and "
+          f"zero chunks at chunks {WKV_EXTREME_CHUNKS}); max |err| {worst}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     return max(worst.values())
 
 
@@ -1193,6 +1314,7 @@ def rwkv_serve_path(torch, dev) -> dict:
     prompt, (b) the launcher's loop on the O(1) decode state, each with
     the counters reset just before and read just after."""
     from repro_torch import configs, cuda
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.kernels.wkv6.kernel import wkv6_plain
     from repro_torch.launch import serve as launcher
@@ -1243,7 +1365,8 @@ def rwkv_serve_path(torch, dev) -> dict:
     print(f"rwkv (a) prefill: B=1 S={PREFILL_TOKENS} in "
           f"{prefill_s * 1e3:.3f} ms = {PREFILL_TOKENS / prefill_s:.1f} "
           f"tokens/s (host clock around the "
-          f"step, synchronized), launches {launches}", flush=True)
+          f"step, synchronized), launches {launches}; each wkv6 call "
+          f"{wkv_kernel.LAST_LAUNCH}", flush=True)
     _require(launches["wkv6"] == cfg.n_layers,
              f"prefill launched wkv6 {launches['wkv6']} times, not "
              f"{cfg.n_layers}")
@@ -1276,6 +1399,10 @@ def rwkv_serve_path(torch, dev) -> dict:
     print(f"rwkv (a) layers: all {len(records)} wkv6 outputs within 2e-2 "
           f"of wkv6_plain on the same inputs, max |err| {layer_err:.4g}",
           flush=True)
+    prefill_ms = _prefill_ms(torch, prefill, params, prompt)
+    print(f"rwkv (a) prefill timed alone: {prefill_ms:.3f} ms = "
+          f"{PREFILL_TOKENS / prefill_ms * 1e3:.1f} tokens/s (CUDA events "
+          f"around one prefill, median of {PREFILL_TIMES})", flush=True)
 
     t0 = time.perf_counter()
     plain_logits = prefill_plain(params, prompt)
@@ -1367,12 +1494,14 @@ def rwkv_serve_path(torch, dev) -> dict:
     del records
     torch.cuda.empty_cache()
     return {"launches": launches["wkv6"], "layer": keep,
-            "max_abs_err": layer_err}
+            "max_abs_err": layer_err, "prefill_ms": prefill_ms}
 
 
-def wkv6_timing(torch, served, parity_err, dev_ms) -> list[dict]:
+def wkv6_timing(torch, served, parity_err, dev_ms, dev_split) -> list[dict]:
     """The kernel at one rwkv6-3b layer's prefill inputs, beside its
-    plain version and the bound (``dev_ms`` from ``early_device_ms``)."""
+    plain version and the bound (``dev_ms`` per call and ``dev_split``
+    per phase, from ``early_device_ms``)."""
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.kernels.wkv6.kernel import wkv6_plain
     r, k, v, w, u, out = served["layer"]
@@ -1381,6 +1510,12 @@ def wkv6_timing(torch, served, parity_err, dev_ms) -> list[dict]:
              f"{str(r.dtype)[6:]}, w {str(w.dtype)[6:]}, u {list(u.shape)} "
              f"{str(u.dtype)[6:]}, y f32")
     ms, reps = time_long_ms(torch, wkv_ops.wkv6, r, k, v, w, u)
+    run = dict(wkv_kernel.LAST_LAUNCH)
+    print(f"{'wkv6':>22} | chunk {run['chunk']} steps x {run['chunks']} "
+          f"chunks; grids: state {run['grids']['state']}, carry "
+          f"{run['grids']['carry']}, out {run['grids']['out']}; scratch "
+          f"{run['scratch_bytes']} B; device ms per call by phase "
+          f"{dev_split}", flush=True)
     plain_ms, plain_reps = time_long_ms(torch, wkv6_plain, r, k, v, w, u)
     nbytes = _nbytes(r, k, v, w, u, out)
     ops = 4 * N * N * T * H * B     # S update and r.S: one FMA per entry
@@ -1388,7 +1523,8 @@ def wkv6_timing(torch, served, parity_err, dev_ms) -> list[dict]:
     t_ops = ops / F32_OPS_PER_S * 1e3
     note = ("none is one call: no PyTorch call runs a data-dependent-decay "
             "linear recurrence")
-    row = {"case": label, "ms": ms, "device_ms": dev_ms, "reps": reps,
+    row = {"case": label, "ms": ms, "device_ms": dev_ms,
+           "device_split_ms": dev_split, "launch": run, "reps": reps,
            "plain_ms": plain_ms, "plain_reps": plain_reps,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1399,6 +1535,11 @@ def wkv6_timing(torch, served, parity_err, dev_ms) -> list[dict]:
           f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
           f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms "
           f"({plain_reps}), library n/a [{note}]", flush=True)
+    share = served["launches"] * ms / served["prefill_ms"]
+    print(f"{'wkv6':>22} | share of {RWKV_ARCH}'s prefill: "
+          f"{served['launches']} x {ms:.4f} ms / {served['prefill_ms']:.3f} "
+          f"ms = {share:.3f}", flush=True)
+    row["prefill_share"] = share
     return [{"name": "wkv6", "route": "cuda",
              "source": "src/repro_torch/csrc/wkv6.cu",
              "replaces": "src/repro/kernels/wkv6/kernel.py:25",
@@ -1731,8 +1872,11 @@ def early_device_ms(torch, rwkv_served, jamba_served) -> dict:
     at jamba's attention shape, at the recorded layers' inputs."""
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.wkv6 import ops as wkv_ops
+    wkv_split = {}
     return {"wkv6": device_ms(torch, "wkv6", wkv_ops.wkv6,
-                              *rwkv_served["layer"][:5], reps=LONG_REPS),
+                              *rwkv_served["layer"][:5], reps=LONG_REPS,
+                              split=wkv_split),
+            "wkv6_split": wkv_split,
             "mamba_scan": device_ms(torch, "mamba_scan",
                                     scan_ops.selective_scan,
                                     *jamba_served["scan"][:6],

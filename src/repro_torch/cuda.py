@@ -15,6 +15,7 @@ kernel launch, never for the plain PyTorch version a CPU tensor takes).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -37,6 +38,10 @@ LAUNCHES = {"schedule_exec": 0, "rmsnorm": 0, "rmsnorm_reduce": 0,
 # body or a CUDA-core body), since the last reset_launches()
 FLASH_BODIES = {"wgmma": 0, "cuda_cores": 0}
 
+# rmsnorm launches (both entries) by body: rows in registers with 16-byte
+# vectors, or the scalar body, since the last reset_launches()
+RMSNORM_BODIES = {"vector": 0, "scalar": 0}
+
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None     # wall time of this process's build
 
@@ -48,12 +53,14 @@ _SIGNATURES = {
     # stream
     "repro_schedule_exec": [_i, _vp, _vp, _vp] + [_i] * 7 + [_i64]
                            + [_i] * 5 + [_vp, _vp],
-    # dtype, scale dtype, parts, scale, out, P, R, d, eps, gemma, threads,
-    # stream
+    # dtype, scale dtype, parts, scale, out, P, R, d, eps, gemma, vectors
+    # a thread (0: the scalar body), threads, stream
     "repro_rmsnorm_reduce": [_i, _i, _vp, _vp, _vp, _i, _i64, _i, _f, _i,
-                             _i, _vp],
-    # dtype, scale dtype, x, scale, out, R, d, eps, gemma, threads, stream
-    "repro_rmsnorm": [_i, _i, _vp, _vp, _vp, _i64, _i, _f, _i, _i, _vp],
+                             _i, _i, _vp],
+    # dtype, scale dtype, x, scale, out, R, d, eps, gemma, vectors a
+    # thread, threads, stream
+    "repro_rmsnorm": [_i, _i, _vp, _vp, _vp, _i64, _i, _f, _i, _i, _i,
+                      _vp],
     # dtype, q, k, v, out, q/k/v strides over (b, s, h), B, Sq, Sk, H, K,
     # D, scale, cap, causal, has_window, window, stream
     "repro_flash_attention": [_i] + [_vp] * 4 + [_i64] * 9 + [_i] * 6
@@ -64,9 +71,10 @@ _SIGNATURES = {
     # which body those run: dtype, q, k, v, out, strides, B, Sq, Sk, H,
     # K, D
     "repro_flash_attention_body": [_i] + [_vp] * 4 + [_i64] * 9 + [_i] * 6,
-    # r/k/v dtype, w dtype, u dtype, r, k, v, w, u, y, r/k/v/w strides
-    # over (b, t, h), B, T, H, N, stream
-    "repro_wkv6": [_i] * 3 + [_vp] * 6 + [_i64] * 12 + [_i] * 4 + [_vp],
+    # r/k/v dtype, w dtype, u dtype, r, k, v, w, u, y, chunk states,
+    # decay products, r/k/v/w strides over (b, t, h), B, T, H, N, chunk,
+    # stream
+    "repro_wkv6": [_i] * 3 + [_vp] * 8 + [_i64] * 12 + [_i] * 5 + [_vp],
     # xc (and B/C) dtype, dt dtype, xc, dt, B, C, A, D, y, xc/dt/B/C
     # strides over (b, t), B, T, Di, S, lanes, stream
     "repro_mamba_scan": [_i] * 2 + [_vp] * 7 + [_i64] * 8 + [_i] * 5
@@ -75,7 +83,7 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_BODIES):
+    for counts in (LAUNCHES, FLASH_BODIES, RMSNORM_BODIES):
         for k in counts:
             counts[k] = 0
 
@@ -162,6 +170,17 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
+def stream_handle(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device, for
+    a launch: the one-call lookup where this torch has it, else the
+    public ``current_stream`` (which builds a Stream object)."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry returned a CUDA error code."""
     if err:
@@ -172,6 +191,7 @@ def check(err: int, what: str) -> None:
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 
+@functools.lru_cache(maxsize=None)
 def dtype_code(dtype) -> int:
     name = str(dtype).replace("torch.", "")
     if name not in DTYPE_CODES:

@@ -13,11 +13,16 @@ CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch import cuda
 
 SMEM_MAX = 232448          # bytes of shared memory one CTA may use (H100)
+VEC_BYTES = 16             # the vector body's loads and stores
+MAX_VPT = 4                # vectors a thread holds (csrc kMaxVpt)
+MAX_THREADS = 512          # the vector body's CTA size at most (kMaxThreads)
 
 
 def _normalize_plain(x32: torch.Tensor, scale: torch.Tensor, eps: float,
@@ -47,28 +52,73 @@ def rmsnorm_reduce_plain(parts: torch.Tensor, scale: torch.Tensor, *,
     return _normalize_plain(acc, scale, eps, gemma_style, parts.dtype)
 
 
-def _threads(d: int) -> int:
-    return min(256, -(-d // 32) * 32)
+def _vector_tiling(nvec: int) -> tuple[int, int]:
+    """(vectors a thread, threads a CTA) for a row of ``nvec`` vectors:
+    an exact fit (every thread holds the same count, whole warps) when
+    one exists, most vectors a thread first; else up to MAX_VPT vectors
+    a thread and whole warps that cover the row."""
+    for vpt in range(MAX_VPT, 0, -1):
+        threads, rem = divmod(nvec, vpt)
+        if not rem and threads % 32 == 0 and threads <= MAX_THREADS:
+            return vpt, threads
+    vpt = min(MAX_VPT, -(-nvec // 128))
+    return vpt, -(-nvec // (32 * vpt)) * 32
 
 
-def _check(x: torch.Tensor, scale: torch.Tensor, d: int,
-           name: str) -> tuple[int, int, torch.Tensor]:
-    """The C entries' dtype codes for x and the scale, and the scale on
-    x's device (the kernel widens it to f32 itself)."""
-    code, scode = cuda.dtype_code(x.dtype), cuda.dtype_code(scale.dtype)
+@functools.lru_cache(maxsize=1024)
+def rmsnorm_body(d: int, dtype: torch.dtype, offset: int
+                 ) -> tuple[str, int, int]:
+    """The body that runs a row of ``d`` values of ``dtype`` whose input
+    (or output) lies ``offset`` bytes past a 16-byte boundary:
+    ``("vector", vectors a thread, threads)`` when the row is whole
+    16-byte vectors on 16-byte boundaries and fits MAX_VPT x MAX_THREADS
+    vectors, else ``("scalar", 0, threads)``.  ``csrc/rmsnorm.cu``
+    re-checks the vector body's conditions and refuses a launch that
+    breaks them."""
+    per = VEC_BYTES // dtype.itemsize
+    nvec = d // per
+    if (d % per == 0 and offset % VEC_BYTES == 0
+            and 0 < nvec <= MAX_VPT * MAX_THREADS):
+        return ("vector", *_vector_tiling(nvec))
+    return "scalar", 0, min(256, -(-d // 32) * 32)
+
+
+def _launch(entry: str, parts: torch.Tensor, scale: torch.Tensor,
+            out: torch.Tensor, P: int, R: int, d: int, eps: float,
+            gemma_style: bool) -> None:
+    """Check the operands and run one launch of ``entry`` (P partials;
+    ``repro_rmsnorm`` takes no P).  The lean path: no device context
+    when ``parts`` is on the current device, no scale copy when it is
+    already there and contiguous, one ctypes call."""
+    code, scode = cuda.dtype_code(parts.dtype), cuda.dtype_code(scale.dtype)
     if scale.shape != (d,):
-        raise ValueError(f"{name}: scale shape {tuple(scale.shape)} != "
+        raise ValueError(f"{entry}: scale shape {tuple(scale.shape)} != "
                          f"({d},)")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: input must be contiguous")
-    if (d + 32) * 4 > SMEM_MAX:
-        raise ValueError(f"{name}: row width {d} exceeds what one CTA "
+    if not parts.is_contiguous():
+        raise ValueError(f"{entry}: input must be contiguous")
+    if scale.device != parts.device or not scale.is_contiguous():
+        scale = scale.to(parts.device).contiguous()
+    body, vpt, threads = rmsnorm_body(
+        d, parts.dtype, (parts.data_ptr() | out.data_ptr()) % VEC_BYTES)
+    if body == "scalar" and (d + 32) * 4 > SMEM_MAX:
+        raise ValueError(f"{entry}: row width {d} exceeds what one CTA "
                          f"holds in shared memory")
-    return code, scode, scale.to(x.device).contiguous()
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    if not (R and P):
+        return
+    index = parts.get_device()
+    args = ((code, scode, parts.data_ptr(), scale.data_ptr(),
+             out.data_ptr()) + ((P,) if entry == "rmsnorm_reduce" else ())
+            + (R, d, float(eps), int(gemma_style), vpt, threads,
+               cuda.stream_handle(index)))
+    fn = getattr(cuda.library(), "repro_" + entry)
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    cuda.check(err, entry)
+    cuda.LAUNCHES[entry] += 1
+    cuda.RMSNORM_BODIES[body] += 1
 
 
 def rmsnorm_2d(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
@@ -79,15 +129,8 @@ def rmsnorm_2d(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_2d: unsupported device {x.device}")
     R, d = x.shape
-    code, scode, w = _check(x, scale, d, "rmsnorm_2d")
     out = torch.empty_like(x)
-    if R:
-        with torch.cuda.device(x.device):
-            err = cuda.library().repro_rmsnorm(
-                code, scode, x.data_ptr(), w.data_ptr(), out.data_ptr(), R, d,
-                float(eps), int(gemma_style), _threads(d), _stream(x))
-        cuda.check(err, "rmsnorm")
-        cuda.LAUNCHES["rmsnorm"] += 1
+    _launch("rmsnorm", x, scale, out, 1, R, d, eps, gemma_style)
     return out
 
 
@@ -102,14 +145,6 @@ def rmsnorm_reduce_2d(parts: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"rmsnorm_reduce_2d: unsupported device "
                          f"{parts.device}")
     P, R, d = parts.shape
-    code, scode, w = _check(parts, scale, d, "rmsnorm_reduce_2d")
     out = parts.new_empty((R, d))
-    if R and P:
-        with torch.cuda.device(parts.device):
-            err = cuda.library().repro_rmsnorm_reduce(
-                code, scode, parts.data_ptr(), w.data_ptr(), out.data_ptr(),
-                P, R, d, float(eps), int(gemma_style), _threads(d),
-                _stream(parts))
-        cuda.check(err, "rmsnorm_reduce")
-        cuda.LAUNCHES["rmsnorm_reduce"] += 1
+    _launch("rmsnorm_reduce", parts, scale, out, P, R, d, eps, gemma_style)
     return out

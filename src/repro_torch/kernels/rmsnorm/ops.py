@@ -1,6 +1,9 @@
 """Public wrappers for the fused rmsnorm kernels: any leading shape, and
 a backward that recomputes through the reference math (the reference's
-``custom_vjp`` becomes a ``torch.autograd.Function``)."""
+``custom_vjp`` becomes a ``torch.autograd.Function``).  A call that needs
+no gradient (grad mode off, or no input requiring one) skips the
+``autograd.Function`` and goes straight to the 2-D wrapper: the short
+kernel's call is partly bound by its host path."""
 from __future__ import annotations
 
 import torch
@@ -24,14 +27,29 @@ def _recompute_grads(fn, inputs, g):
         return torch.autograd.grad(fn(*leaves), leaves, g)
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _rmsnorm_nd(x, scale, eps, gemma_style):
+    flat = x.reshape(-1, x.shape[-1]).contiguous()
+    return rmsnorm_2d(flat, scale, eps=eps,
+                      gemma_style=gemma_style).reshape(x.shape)
+
+
+def _rmsnorm_allreduce_nd(parts, scale, eps, gemma_style):
+    P, d = parts.shape[0], parts.shape[-1]
+    flat = parts.reshape(P, -1, d).contiguous()
+    out = rmsnorm_reduce_2d(flat, scale, eps=eps, gemma_style=gemma_style)
+    return out.reshape(parts.shape[1:])
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, eps, gemma_style):
         ctx.save_for_backward(x, scale)
         ctx.eps, ctx.gemma_style = eps, gemma_style
-        flat = x.reshape(-1, x.shape[-1]).contiguous()
-        return rmsnorm_2d(flat, scale, eps=eps,
-                          gemma_style=gemma_style).reshape(x.shape)
+        return _rmsnorm_nd(x, scale, eps, gemma_style)
 
     @staticmethod
     def backward(ctx, g):
@@ -47,11 +65,7 @@ class _RMSNormAllreduce(torch.autograd.Function):
     def forward(ctx, parts, scale, eps, gemma_style):
         ctx.save_for_backward(parts, scale)
         ctx.eps, ctx.gemma_style = eps, gemma_style
-        P, d = parts.shape[0], parts.shape[-1]
-        flat = parts.reshape(P, -1, d).contiguous()
-        out = rmsnorm_reduce_2d(flat, scale, eps=eps,
-                                gemma_style=gemma_style)
-        return out.reshape(parts.shape[1:])
+        return _rmsnorm_allreduce_nd(parts, scale, eps, gemma_style)
 
     @staticmethod
     def backward(ctx, g):
@@ -65,7 +79,9 @@ class _RMSNormAllreduce(torch.autograd.Function):
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
             gemma_style: bool = False) -> torch.Tensor:
     """Fused rmsnorm over the last dim of ``x`` (any leading shape)."""
-    return _RMSNorm.apply(x, scale, eps, gemma_style)
+    if _wants_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps, gemma_style)
+    return _rmsnorm_nd(x, scale, eps, gemma_style)
 
 
 def rmsnorm_allreduce(parts: torch.Tensor, scale: torch.Tensor,
@@ -76,4 +92,6 @@ def rmsnorm_allreduce(parts: torch.Tensor, scale: torch.Tensor,
     output); returns rmsnorm(sum over P) of shape [..., d] without ever
     writing the reduced tensor to device memory — the collective's
     terminal reduce round runs as the kernel's epilogue."""
-    return _RMSNormAllreduce.apply(parts, scale, eps, gemma_style)
+    if _wants_grad(parts, scale):
+        return _RMSNormAllreduce.apply(parts, scale, eps, gemma_style)
+    return _rmsnorm_allreduce_nd(parts, scale, eps, gemma_style)

@@ -21,7 +21,8 @@ assert which body ran: wgmma for aligned bf16, the CUDA-core body for
 bf16 off 16-byte alignment), and the gather kernel's dead rows are
 exact zeros; the wkv6 kernel is within the reference's
 kernel tolerances of its plain version, ``2e-5`` with f32 inputs and
-``2e-2`` with bf16 ones (another order of the f32 sums over the head);
+``2e-2`` with bf16 ones (another order of the f32 sums over the head,
+and, across chunks, each chunk's decay product rounded as one product);
 so is the selective-scan kernel (another order of the f32 sum over the
 states, fused multiply-adds, and exp2 on dt * A log2 e).
 """
@@ -41,7 +42,9 @@ from repro_torch.core.transport import SimTransport
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.kernel import (flash_attention_bshd,
                                                   flash_attention_plain)
-from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_2d, rmsnorm_plain,
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_2d, rmsnorm_body,
+                                                rmsnorm_plain,
                                                 rmsnorm_reduce_2d,
                                                 rmsnorm_reduce_plain)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
@@ -49,6 +52,7 @@ from repro_torch.kernels.mamba_scan.kernel import (selective_scan_bdt,
                                                    selective_scan_plain)
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.kernels.wkv6 import kernel as wkv_kernel
 from repro_torch.kernels.wkv6.kernel import wkv6_bthn, wkv6_plain
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
@@ -249,6 +253,80 @@ def test_rmsnorm_kernels_match_plain_versions(cuda_device, dtype, gemma):
             ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs()
                                                  .clamp_min(1e-30))) - 7)
             assert bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+def _ulp_close(got, want):
+    """Within one bf16 ulp of ``want`` (f32: 1e-5)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs()
+                                         .clamp_min(1e-30))) - 7)
+    assert bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 100, 2304, 5120, 16384])
+@pytest.mark.parametrize("P", [1, 2, 3, 8])
+def test_rmsnorm_kernel_bodies(cuda_device, dtype, d, P):
+    """Every width, P and dtype on the body ``rmsnorm_body`` names (each
+    launch counted by body), R = 1 and R = 37 rows, aligned and at an
+    odd element offset (which must take the scalar body)."""
+    rng = np.random.default_rng(d + P)
+    scale = torch.from_numpy(rng.standard_normal(d).astype(np.float32)
+                             ).to(cuda_device)
+    for R in (1, 37):
+        flat = torch.from_numpy(rng.standard_normal(P * R * d + 1)
+                                .astype(np.float32)).to(cuda_device, dtype)
+        for off in (0, 1):
+            parts = flat[off:off + P * R * d].view(P, R, d)
+            want_body = rmsnorm_body(d, dtype, parts.data_ptr() % 16)[0]
+            if off:
+                assert want_body == "scalar"
+            before = dict(cuda.RMSNORM_BODIES)
+            if P == 1:
+                got = rmsnorm_2d(parts[0], scale, gemma_style=True)
+                want = rmsnorm_plain(parts[0], scale, gemma_style=True)
+            else:
+                got = rmsnorm_reduce_2d(parts, scale)
+                want = rmsnorm_reduce_plain(parts, scale)
+            torch.cuda.synchronize()
+            assert cuda.RMSNORM_BODIES[want_body] == before[want_body] + 1
+            _ulp_close(got, want)
+
+
+def test_rmsnorm_bf16_at_8_bytes_takes_the_scalar_body(cuda_device):
+    """A bf16 row 8 bytes past a 16-byte boundary is whole vectors of
+    width but must not take the 16-byte path."""
+    rng = np.random.default_rng(9)
+    flat = torch.from_numpy(rng.standard_normal(4 * 5120 + 4)
+                            .astype(np.float32)).to(cuda_device,
+                                                    torch.bfloat16)
+    x = flat[4:].view(4, 5120)
+    assert x.data_ptr() % 16 == 8
+    scale = torch.ones(5120, device=cuda_device)
+    n0 = cuda.RMSNORM_BODIES["scalar"]
+    _ulp_close(rmsnorm_2d(x, scale), rmsnorm_plain(x, scale))
+    assert cuda.RMSNORM_BODIES["scalar"] == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_fast_path_equals_autograd_path(cuda_device, dtype):
+    """The no-grad call (straight to the 2-D wrapper) and the autograd
+    call give the same bits, for both ops, at a 3-D input."""
+    rng = np.random.default_rng(10)
+    parts = torch.from_numpy(rng.standard_normal((8, 2, 33, 2304))
+                             .astype(np.float32)).to(cuda_device, dtype)
+    scale = torch.from_numpy(rng.standard_normal(2304).astype(np.float32)
+                             ).to(cuda_device, dtype)
+    for op, x in ((rms_ops.rmsnorm, parts[0]),
+                  (rms_ops.rmsnorm_allreduce, parts)):
+        with torch.no_grad():
+            fast = op(x, scale, 1e-6, True)
+        slow = op(x.clone().requires_grad_(), scale, 1e-6, True)
+        assert slow.requires_grad and not fast.requires_grad
+        assert torch.equal(_bits(fast), _bits(slow.detach()))
+        slow.float().sum().backward()
 
 
 ATTN_VARIANTS = [dict(causal=True), dict(causal=True, window=48),
@@ -478,6 +556,83 @@ def test_wkv6_kernel_reads_strides(cuda_device):
                                 torch.float32, torch.float32)
     got = wkv6_bthn(r, k, v, w, u)
     want = wkv6_bthn(r.contiguous(), k.contiguous(), v.contiguous(), w, u)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, wkv6_plain(r, k, v, w, u),
+                               **WKV_TOL[torch.float32])
+
+
+# (B, T, chunk): T below, at and one past a chunk, a multiple of it, the
+# launcher's and the sweep's short T, T = 200, and rwkv6-3b's 8192 at
+# the chunk the wrapper picks (None) and at the shortest it may pick
+WKV_CHUNK_EDGES = [(2, 15, 16), (2, 16, 16), (2, 17, 16), (2, 64, 16),
+                   (2, 200, 16), (2, 200, None), (2, 32, None),
+                   (2, 16, None), (2, 8192, None), (2, 8192, 64),
+                   (2, 1000, 128)]
+
+
+@pytest.mark.parametrize("B,T,chunk", WKV_CHUNK_EDGES)
+def test_wkv6_kernel_chunk_edges(cuda_device, B, T, chunk):
+    """The chunk-parallel scan at its edges, in f32 at 2e-5 and in the
+    model's mix at 2e-2; the phases that ran match the chunk count."""
+    H, N = (40, 64) if T == 8192 else (3, 64)
+    rng = np.random.default_rng(T + (chunk or 0))
+    for rkv, wdt in ((torch.float32, torch.float32),
+                     (torch.bfloat16, torch.float32)):
+        args = _wkv_inputs(rng, cuda_device, B, T, H, N, rkv, wdt)
+        n0 = cuda.LAUNCHES["wkv6"]
+        got = wkv6_bthn(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES["wkv6"] == n0 + 1
+        run = wkv_kernel.LAST_LAUNCH
+        C = chunk or wkv_kernel.wkv6_chunk(B, T, H, N)
+        assert run["chunk"] == C and run["chunks"] == -(-T // C)
+        assert (run["grids"]["state"] is None) == (T <= C)
+        assert (run["grids"]["carry"] is None) == (T <= 2 * C)
+        torch.testing.assert_close(
+            got, wkv6_plain(*args),
+            **WKV_TOL[torch.float32 if rkv == torch.float32
+                      else torch.bfloat16])
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+@pytest.mark.parametrize("rkv", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_decay_extremes(cuda_device, chunk, rkv):
+    """w = exp(-exp(x)) with x up to +5 (exactly 0 in f32 past ~4.6),
+    channels of exact 0 and exact 1, a whole chunk of zero decays in
+    every head and one more in one head of one batch row: finite, and
+    within the tolerance of the plain version."""
+    rng = np.random.default_rng(30 + chunk)
+    B, T, H, N = 2, 5 * chunk + 3, 3, 64
+    r, k, v, _, u = _wkv_inputs(rng, cuda_device, B, T, H, N, rkv,
+                                torch.float32)
+    x = torch.from_numpy(rng.uniform(-3.0, 5.0, (B, T, H, N))
+                         .astype(np.float32)).to(cuda_device)
+    w = torch.exp(-torch.exp(x))
+    w[..., 0] = 0.0
+    w[..., 1] = 1.0
+    w[:, chunk:2 * chunk] = 0.0
+    w[1, 3 * chunk:4 * chunk, 2] = 0.0
+    got = wkv6_bthn(r, k, v, w, u, chunk=chunk)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, wkv6_plain(r, k, v, w, u),
+                               **WKV_TOL[rkv])
+
+
+def test_wkv6_kernel_reads_strides_in_every_phase(cuda_device):
+    """Views of one projection against their copies, bit for bit, with
+    three phases running (T = 70 at chunk 16: five chunks)."""
+    rng = np.random.default_rng(23)
+    B, T, H, N = 2, 70, 4, 64
+    rkv = torch.from_numpy(rng.standard_normal((B, T, H, 3 * N))
+                           .astype(np.float32)).to(cuda_device)
+    r, k, v = rkv[..., :N], rkv[..., N:2 * N], rkv[..., 2 * N:]
+    _, _, _, w, u = _wkv_inputs(rng, cuda_device, B, T, H, N,
+                                torch.float32, torch.float32)
+    w_view = torch.cat([w, w], -1)[..., :N]
+    got = wkv6_bthn(r, k, v, w_view, u, chunk=16)
+    assert wkv_kernel.LAST_LAUNCH["grids"]["carry"] is not None
+    want = wkv6_bthn(r.contiguous(), k.contiguous(), v.contiguous(), w, u,
+                     chunk=16)
     assert torch.equal(got, want)
     torch.testing.assert_close(got, wkv6_plain(r, k, v, w, u),
                                **WKV_TOL[torch.float32])
