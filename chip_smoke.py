@@ -69,9 +69,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              model tolerance against the kernel prefill);
 6. jamba   — the selective-scan kernel against its plain version on
              random floats (the reference's sweep shapes, T that are no
-             multiple of 64, S of 4, 8 and 16; f32, bf16 and the f32
-             model's mix of bf16 dt with f32 xc/B/C), then the earlier
-             models freed and jamba-1.5-large-398b's one-card cut (one
+             multiple of 64, T of 1 and either side of the 32-step tile,
+             Di tails, S of 4, 8 and 16; f32, bf16 and the f32 model's
+             mix of bf16 dt with f32 xc/B/C; strided views on the
+             plain-load path; dt A of -90, flushed to zero) and its
+             CPU twin (bit for bit with A = 0), then the
+             earlier models freed and jamba-1.5-large-398b's one-card cut (one
              period of 8 layers at full width, experts 0-7 of 16, random
              bf16 weights from a seeded generator on the card): (a)
              counters reset, the kernel prefill of one 8192-token
@@ -1561,7 +1564,11 @@ SCAN_SHAPES = [(1, 16, 8, 4), (2, 64, 32, 8), (1, 128, 64, 16),
                (2, 48, 24, 8),                 # the reference's sweep
                (1, 200, 1024, 16),             # T no multiple of 64
                (2, 77, 300, 8), (3, 33, 130, 4),
-               (4, 40, 16384, 16), (2, 24, 16384, 8)]   # 1 and 2 lanes
+               (4, 40, 16384, 16), (2, 24, 16384, 8),  # 2 groups a CTA
+               # T of 1 and one either side of the plan's 32-step tile;
+               # Di tails (bf16 rows of 260 and 600 bytes: plain loads)
+               (2, 1, 24, 16), (1, 31, 130, 8), (2, 33, 300, 4),
+               (1, 31, 24, 16), (1, 33, 8192, 16)]
 # xc (and B, C), dt; the last is the f32 model's mix
 SCAN_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
                ("float32", "bfloat16")]
@@ -1588,33 +1595,78 @@ def _scan_inputs(torch, gen, dev, B, T, Di, S, x, dt):
 def mamba_scan_parity(torch, dev) -> float:
     """The kernel against its plain version; returns the max |err|."""
     from repro_torch import cuda
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.mamba_scan.kernel import (selective_scan_bdt,
                                                        selective_scan_plain)
+    from repro_torch.kernels.mamba_scan.tiles import selective_scan_tiles
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    checked, worst = 0, {}
+    checked, worst, loads = 0, {}, set()
+
+    def check(args, tol, key, what):
+        nonlocal checked
+        n0 = cuda.LAUNCHES["mamba_scan"]
+        got = selective_scan_bdt(*args)
+        torch.cuda.synchronize()
+        _require(cuda.LAUNCHES["mamba_scan"] == n0 + 1,
+                 "mamba_scan: not one launch per call")
+        err = _close(torch, got, selective_scan_plain(*args), tol, tol,
+                     f"mamba_scan {what} {key}")
+        worst[key] = max(worst.get(key, 0.0), err)
+        loads.add(tuple(scan_kernel.LAST_LAUNCH["loads"].values()))
+        checked += 1
+
     for B, T, Di, S in SCAN_SHAPES:
         for dts in SCAN_DTYPES:
             args = _scan_inputs(torch, gen, dev, B, T, Di, S, *dts)
-            n0 = cuda.LAUNCHES["mamba_scan"]
-            got = selective_scan_bdt(*args)
-            torch.cuda.synchronize()
-            _require(cuda.LAUNCHES["mamba_scan"] == n0 + 1,
-                     "mamba_scan: not one launch per call")
             tol = SCAN_TOL["float32" if set(dts) == {"float32"}
                            else "bfloat16"]
-            key = "xc/B/C {}, dt {}".format(*dts)
-            err = _close(torch, got, selective_scan_plain(*args), tol, tol,
-                         f"mamba_scan B={B} T={T} Di={Di} S={S} {key}")
-            worst[key] = max(worst.get(key, 0.0), err)
-            checked += 1
+            check(args, tol, "xc/B/C {}, dt {}".format(*dts),
+                  f"B={B} T={T} Di={Di} S={S}")
+    # xc and dt as views one element into wider rows (off 16 bytes: the
+    # producer's plain loads), B and C views of one projection
+    B, T, Di, S = 2, 75, 192, 16
+    xd = torch.randn((B, T, 2 * Di + 1), generator=gen, device=dev).to(
+        torch.bfloat16)
+    wide = torch.zeros((B, T, Di + 1), device=dev, dtype=torch.bfloat16)
+    wide[..., 1:] = xd[..., Di + 1:].abs() * 0.1
+    proj = torch.randn((B, T, 8 + 2 * S), generator=gen, device=dev).to(
+        torch.bfloat16)
+    *_, A, D = _scan_inputs(torch, gen, dev, B, T, Di, S, "float32",
+                            "float32")
+    check((xd[..., 1:Di + 1], wide[..., 1:], proj[..., 8:8 + S],
+           proj[..., 8 + S:], A, D), SCAN_TOL["bfloat16"], "strided bf16",
+          f"B={B} T={T} Di={Di} S={S}")
+    _require(("plain", "plain") in loads and ("tma", "tma") in loads,
+             f"mamba_scan parity: loads {loads}, not both paths")
+    # dt A below -126 ln 2 on half the states: ex2.ftz gives exact zeros
+    xc, dt, Bc, Cc, A, D = _scan_inputs(torch, gen, dev, 1, 64, 256, 16,
+                                        "float32", "float32")
+    A[:, ::2] = -45.0
+    check((xc, torch.full_like(dt, 2.0), Bc, Cc, A, D),
+          SCAN_TOL["float32"], "ftz f32", "dt A = -90")
+    # the CPU twin of the kernel's order of adds: bit for bit where no exp
+    # rounds (A = 0), and the gap that ex2.approx leaves with A drawn
+    xc, dt, Bc, Cc, A, D = _scan_inputs(torch, gen, dev, 2, 70, 130, 16,
+                                        "float32", "float32")
+    twin_gap = {}
+    for what, a in (("A = 0", torch.zeros_like(A)), ("A drawn", A)):
+        args = (xc, dt, Bc, Cc, a, D)
+        got = selective_scan_bdt(*args).cpu()
+        twin = selective_scan_tiles(*(t.cpu() for t in args))
+        twin_gap[what] = (got - twin).abs().max().item()
+    _require(twin_gap["A = 0"] == 0.0,
+             f"mamba_scan: off its CPU twin with A = 0 ({twin_gap})")
     print(f"mamba_scan parity: {checked} kernel calls (the reference's "
-          f"sweep shapes, T=200/77/33/40/24, Di=1024/300/130/16384, S "
-          f"4/8/16, 4, 2 and 1 lanes per channel; f32, bf16 and bf16 dt "
-          f"with f32 xc/B/C) within atol=rtol 2e-5 (all f32) / "
-          f"2e-2 (bf16 inputs); max |err| {worst}; "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"sweep shapes, T=200/77/33/40/24/31/1, Di=1024/300/130/24/8192/"
+          f"16384, S 4/8/16, one and two groups of 32 channels a CTA; f32, "
+          f"bf16 and bf16 dt with f32 xc/B/C; strided bf16 views on the "
+          f"plain-load path; dt A = -90 flushed to zero) within atol=rtol "
+          f"2e-5 (all f32) / 2e-2 (bf16 inputs); loads {sorted(loads)}; "
+          f"max |err| {worst}; kernel vs CPU twin [2, 70, 130] S 16 f32, "
+          f"max |diff| {twin_gap}; {time.perf_counter() - t0:.2f} s",
+          flush=True)
     return max(worst.values())
 
 
@@ -1890,11 +1942,17 @@ def early_device_ms(torch, rwkv_served, jamba_served) -> dict:
 def mamba_scan_timing(torch, served, parity_err, dev_ms) -> list[dict]:
     """The kernel at one jamba layer's prefill inputs, beside its plain
     version and the bound (``dev_ms`` from ``early_device_ms``)."""
+    import dataclasses
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.mamba_scan import ops as scan_ops
     from repro_torch.kernels.mamba_scan.kernel import selective_scan_plain
     xc, dt, Bc, Cc, A, D, out = served["scan"]
     B, T, Di = xc.shape
     S = Bc.shape[-1]
+    scan_ops.selective_scan(xc, dt, Bc, Cc, A, D)
+    launch = dict(scan_kernel.LAST_LAUNCH)
+    plan, stages = launch["plan"], launch["stages"]
+    loads, ctas = launch["loads"], launch["ctas_per_sm"]
     label = (f"{JAMBA_ARCH} mamba layer prefill: xc/dt {list(xc.shape)} "
              f"{str(xc.dtype)[6:]}/{str(dt.dtype)[6:]}, B/C {list(Bc.shape)} "
              f"{str(Bc.dtype)[6:]}, A {list(A.shape)} f32, y f32")
@@ -1918,15 +1976,23 @@ def mamba_scan_timing(torch, served, parity_err, dev_ms) -> list[dict]:
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "operations": ops, "exps": updates,
            "bytes_ms": t_bytes, "f32_ms": t_f32, "exp_ms": t_exp,
-           "sm_clock_mhz": clock / 1e6, "library_ms": None,
+           "sm_clock_mhz": clock / 1e6, "body": "tiles",
+           "plan": dataclasses.asdict(plan), "stages": stages,
+           "loads": loads,
+           "ctas_per_sm": ctas,
+           "bound_share": t_exp / (dev_ms or ms), "library_ms": None,
            "library_call": None, "library_note": note}
     print(f"{'mamba_scan':>22} | {label}: {ms:.4f} ms [device "
           f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms] ({reps}; "
-          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}: bytes "
-          f"{t_bytes:.4f}, f32 {t_f32:.4f}, exps {t_exp:.4f} at "
-          f"{clock / 1e6:.0f} MHz; {updates / ms / 1e9:.2f} T (t, d, s) "
-          f"updates/s), plain {plain_ms:.4f} ms ({plain_reps}), library n/a "
-          f"[{note}]", flush=True)
+          f"tiles body, plan W={plan.warps} C={plan.groups} "
+          f"KT={plan.steps} stages={stages}, "
+          f"{ctas} CTAs/SM, loads {loads}; bound {row['bound_ms']:.4f} ms "
+          f"by {row['bound_by']}: bytes {t_bytes:.4f}, f32 {t_f32:.4f}, "
+          f"exps {t_exp:.4f} at {clock / 1e6:.0f} MHz, "
+          f"{row['bound_share']:.2f} of the exp bound; "
+          f"{updates / ms / 1e9:.2f} T (t, d, s) updates/s), plain "
+          f"{plain_ms:.4f} ms ({plain_reps}), library n/a [{note}]",
+          flush=True)
     return [{"name": "mamba_scan", "route": "cuda",
              "source": "src/repro_torch/csrc/mamba_scan.cu",
              "replaces": "src/repro/kernels/mamba_scan/kernel.py:20",

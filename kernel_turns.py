@@ -1,5 +1,5 @@
-"""Time the rmsnorm and wkv6 kernels of one or more trees, in turns, on
-one NVIDIA GPU.
+"""Time the rmsnorm, wkv6 and selective-scan kernels of one or more
+trees, in turns, on one NVIDIA GPU.
 
     python3 kernel_turns.py [TREE ...]
 
@@ -17,7 +17,12 @@ holds this script) prints one JSON line per case:
   the device time per call and per kernel (``split``); where the tree's
   ``wkv6_bthn`` takes a chunk length, also each of ``CHUNKS`` below and
   the whole T as one chunk (phase 3 alone: the serial chain), each
-  checked against ``wkv6_plain`` at 2e-2 first.
+  checked against ``wkv6_plain`` at 2e-2 first;
+- the selective-scan op at jamba-1.5-large's layer shape (xc/dt ``[1,
+  8192, 16384]`` bf16, S 16, drawn by ``chip_smoke._scan_inputs`` from
+  seed 0), checked against ``selective_scan_plain`` at 2e-2 first:
+  ``ms`` (CUDA events, median of 5 batches of 20 calls) and the device
+  time per call.
 
 Each tree runs in a process of its own, in the order given, and builds
 its own library, so that
@@ -38,6 +43,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CHUNKS = (64, 128, 256, 512)
 WKV_SHAPE = (1, 8192, 40, 64)
+SCAN_SHAPE = (1, 8192, 16384, 16)      # B, T, Di, S
 
 
 def measure(tree: Path) -> None:
@@ -101,6 +107,31 @@ def measure(tree: Path) -> None:
             "tree": str(tree), "case": f"wkv6 {list(WKV_SHAPE)} {what}",
             "ms": cs.time_ms(torch, fn, r, k, v, w, u, reps=10),
             "device_ms": dev_ms, "split": split}), flush=True)
+    del r, k, v, w, u
+    scan(torch, tree, cs)
+
+
+def scan(torch, tree: Path, cs) -> None:
+    """The selective-scan op at jamba-1.5-large's layer shape."""
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    B, T, Di, S = SCAN_SHAPE
+    args = cs._scan_inputs(torch, gen, dev, B, T, Di, S, "bfloat16",
+                           "bfloat16")
+    want = scan_kernel.selective_scan_plain(*args)
+    fn = scan_ops.selective_scan
+    got = fn(*args)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, atol=2e-2, rtol=2e-2):
+        raise RuntimeError("mamba_scan: off the plain version")
+    print(json.dumps({
+        "tree": str(tree), "case": f"mamba_scan {list(SCAN_SHAPE)} op",
+        "ms": cs.time_ms(torch, fn, *args),
+        "device_ms": cs.device_ms(torch, "mamba_scan", fn, *args)}),
+        flush=True)
 
 
 def main(argv: list[str]) -> int:

@@ -1,6 +1,6 @@
 // PTX helpers shared by the Hopper kernels (schedule_exec.cu,
-// flash_attention.cu): mbarriers with a bounded wait, the async-proxy
-// fence, and the run-time lookup of cuTensorMapEncodeTiled.
+// flash_attention.cu, mamba_scan.cu): mbarriers with a bounded wait, the
+// async-proxy fence, and the run-time lookup of cuTensorMapEncodeTiled.
 #pragma once
 
 #include <cuda.h>

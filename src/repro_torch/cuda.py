@@ -76,9 +76,11 @@ _SIGNATURES = {
     # stream
     "repro_wkv6": [_i] * 3 + [_vp] * 8 + [_i64] * 12 + [_i] * 5 + [_vp],
     # xc (and B/C) dtype, dt dtype, xc, dt, B, C, A, D, y, xc/dt/B/C
-    # strides over (b, t), B, T, Di, S, lanes, stream
-    "repro_mamba_scan": [_i] * 2 + [_vp] * 7 + [_i64] * 8 + [_i] * 5
+    # strides over (b, t), B, T, Di, S, W, C, KT, stages, tma, stream
+    "repro_mamba_scan": [_i] * 2 + [_vp] * 7 + [_i64] * 8 + [_i] * 9
                         + [_vp],
+    # xc dtype, dt dtype, S, W, C, KT, out: stages, out: CTAs per SM
+    "repro_mamba_scan_fit": [_i] * 6 + [_vp, _vp],
 }
 
 

@@ -3,16 +3,25 @@ version.
 
 ``selective_scan_bdt`` runs the Mamba-1 recurrence from a zero state:
 ``h = exp(dt_t A) h + (dt_t x_t) (x) B_t``, ``y_t = h . C_t + D x_t``,
-in f32, each channel's [S] state held in the registers of ``lanes``
-threads.  xc and dt are each read in their own dtype, f32 or bf16, B and
-C in xc's, all through their ``[B, T, .]`` strides; A and D are f32 (on
-the CPU too; anything else raises ``TypeError``); y comes back in f32.
-Any T >= 1 runs; S is one of ``STATE_SIZES``.
+in f32: one channel per lane, the S states of 32 channels split over W
+warps, tiles of KT steps staged in a shared-memory ring by a producer
+warp, y summed once per tile by an epilogue warp (``scan_plan`` picks
+W, the 32-channel groups per CTA and KT; the library, from its own
+layout, the stages of the ring).  xc and dt are
+each read in their own dtype, f32 or bf16, B and C in xc's, all
+through their ``[B, T, .]`` strides; A and D are f32 (on the CPU too;
+anything else raises ``TypeError``); y comes back in f32.  Any T >= 1
+runs; S is one of ``STATE_SIZES``.
 
 The wrapper takes the plain PyTorch version only for a CPU tensor; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises.  ``tiles.py`` holds the
+CPU twin of the kernel's tiling and order of adds.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -20,16 +29,59 @@ from repro_torch import cuda
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
 STATE_SIZES = (4, 8, 16)       # the kernel's instantiations
-FILL_THREADS = 1 << 16         # threads that hide a step's latency
+STATES_PER_THREAD = 4          # W = S / 4 state-warps per 32 lanes
+H100_SMS = 132                 # scan_plan's SMs where no card is asked
+TMA_ALIGN = 16                 # bytes: TMA boxes need this of base, strides
 
 
-def lanes(B: int, Di: int, S: int) -> int:
-    """Threads per channel (1, 2 or 4, at most S): the fewest that give
-    about FILL_THREADS threads in all (4 at B 1 and Di 16384)."""
-    n = 1
-    while n < min(4, S) and B * Di * n * 2 <= FILL_THREADS:
-        n *= 2
-    return n
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """One launch's tiling: ``warps`` (W) state-warps per 32 channels,
+    ``groups`` (C) groups of 32 channels per CTA, ``steps`` (KT) steps
+    a tile."""
+    warps: int
+    groups: int
+    steps: int = 32
+
+
+# the last launch's plan, stages, CTAs per SM and loads (TMA boxes or
+# plain loads, per input)
+LAST_LAUNCH: dict = {}
+
+
+def scan_plan(B: int, Di: int, S: int, sms: int = H100_SMS) -> ScanPlan:
+    """W = S / 4 (four states a thread); two groups of 32 channels a CTA
+    where that still gives each of ``sms`` SMs a CTA, else one; 32 steps
+    a tile."""
+    groups = 2 if B * -(-Di // 64) >= sms else 1
+    return ScanPlan(S // STATES_PER_THREAD, groups)
+
+
+@functools.lru_cache(maxsize=None)
+def ring_fit(index: int, x_dtype: torch.dtype, dt_dtype: torch.dtype,
+             S: int, plan: ScanPlan) -> tuple[int, int]:
+    """(stages, CTAs per SM) of ``plan``'s kernel on card ``index``: the
+    most stages, of 4, 3 and 2, that keep the CTAs per SM that 2 give
+    (the library's ``repro_mamba_scan_fit``)."""
+    stages, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        cuda.check(cuda.library().repro_mamba_scan_fit(
+            cuda.dtype_code(x_dtype), cuda.dtype_code(dt_dtype), S,
+            plan.warps, plan.groups, plan.steps, ctypes.addressof(stages),
+            ctypes.addressof(ctas)), "mamba_scan fit")
+    return stages.value, ctas.value
+
+
+def tma_ok(t: torch.Tensor) -> bool:
+    """Whether the kernel may read ``t`` ([B, T, Di], last dim contiguous)
+    with TMA boxes: a 16-byte-aligned base, (b, t) strides that are
+    whole 16-byte multiples and do not overlap rows."""
+    B_, T, Di = t.shape
+    e = t.element_size()
+    sb, st = t.stride()[:2]
+    if t.data_ptr() % TMA_ALIGN or (st * e) % TMA_ALIGN or st < Di:
+        return False
+    return B_ == 1 or ((sb * e) % TMA_ALIGN == 0 and sb >= st * T)
 
 
 def selective_scan_plain(xc, dt, Bc, Cc, A, D):
@@ -40,6 +92,11 @@ def selective_scan_plain(xc, dt, Bc, Cc, A, D):
     bf16 product when both are bf16, as the reference's oracle does.)"""
     return selective_scan_ref(xc.float(), dt.float(), Bc.float(),
                               Cc.float(), A, D)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(xc, dt, Bc, Cc, A, D) -> None:
@@ -71,8 +128,8 @@ def _check(xc, dt, Bc, Cc, A, D) -> None:
 
 
 def selective_scan_bdt(xc: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
-                       Cc: torch.Tensor, A: torch.Tensor,
-                       D: torch.Tensor) -> torch.Tensor:
+                       Cc: torch.Tensor, A: torch.Tensor, D: torch.Tensor
+                       ) -> torch.Tensor:
     """xc, dt [B, T, Di]; Bc, Cc [B, T, S]; A [Di, S]; D [Di] -> y
     [B, T, Di] float32."""
     _check(xc, dt, Bc, Cc, A, D)
@@ -88,6 +145,9 @@ def selective_scan_bdt(xc: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
         raise ValueError(f"mamba_scan: state size {S} not in {STATE_SIZES}")
     if B_ > 65535:
         raise ValueError(f"mamba_scan: B {B_} exceeds the grid (65535)")
+    index = xc.get_device()
+    plan = scan_plan(B_, Di, S, _sms(index))
+    stages, ctas = ring_fit(index, xc.dtype, dt.dtype, S, plan)
     xc, dt, Bc, Cc = (t if t.stride(-1) == 1 else t.contiguous()
                       for t in (xc, dt, Bc, Cc))
     A, D = A.contiguous(), D.contiguous()
@@ -96,11 +156,18 @@ def selective_scan_bdt(xc: torch.Tensor, dt: torch.Tensor, Bc: torch.Tensor,
         return y
     codes = [cuda.dtype_code(t.dtype) for t in (xc, dt)]
     strides = [s for t in (xc, dt, Bc, Cc) for s in t.stride()[:2]]
-    with torch.cuda.device(xc.device):
-        err = cuda.library().repro_mamba_scan(
-            *codes, *(t.data_ptr() for t in (xc, dt, Bc, Cc, A, D)),
-            y.data_ptr(), *strides, B_, T, Di, S, lanes(B_, Di, S),
-            torch.cuda.current_stream(xc.device).cuda_stream)
+    tma = int(tma_ok(xc)) | int(tma_ok(dt)) << 1
+    args = (*codes, *(t.data_ptr() for t in (xc, dt, Bc, Cc, A, D)),
+            y.data_ptr(), *strides, B_, T, Di, S, plan.warps, plan.groups,
+            plan.steps, stages, tma, cuda.stream_handle(index))
+    if index == torch.cuda.current_device():
+        err = cuda.library().repro_mamba_scan(*args)
+    else:
+        with torch.cuda.device(index):
+            err = cuda.library().repro_mamba_scan(*args)
     cuda.check(err, "mamba_scan")
     cuda.LAUNCHES["mamba_scan"] += 1
+    LAST_LAUNCH.update(plan=plan, stages=stages, ctas_per_sm=ctas, loads={
+        "xc": "tma" if tma & 1 else "plain",
+        "dt": "tma" if tma & 2 else "plain"})
     return y

@@ -24,7 +24,9 @@ kernel tolerances of its plain version, ``2e-5`` with f32 inputs and
 ``2e-2`` with bf16 ones (another order of the f32 sums over the head,
 and, across chunks, each chunk's decay product rounded as one product);
 so is the selective-scan kernel (another order of the f32 sum over the
-states, fused multiply-adds, and exp2 on dt * A log2 e).
+states, fused multiply-adds, ex2.approx.ftz on dt * A log2 e, which
+flushes decays below 2^-126 to 0), against its plain version and its
+CPU twin.
 """
 import numpy as np
 import pytest
@@ -47,10 +49,13 @@ from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_2d, rmsnorm_body,
                                                 rmsnorm_plain,
                                                 rmsnorm_reduce_2d,
                                                 rmsnorm_reduce_plain)
+from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mamba_scan.kernel import (selective_scan_bdt,
                                                    selective_scan_plain)
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+from repro_torch.kernels.mamba_scan import tiles as scan_tiles
+from repro_torch.kernels.mamba_scan.tiles import selective_scan_tiles
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6 import kernel as wkv_kernel
 from repro_torch.kernels.wkv6.kernel import wkv6_bthn, wkv6_plain
@@ -677,12 +682,15 @@ def _scan_inputs(rng, device, B, T, Di, S, x=torch.float32, dt=torch.float32):
                                       (1, 128, 64, 16), (2, 48, 24, 8),
                                       (1, 200, 300, 16), (2, 33, 130, 4),
                                       (3, 1, 16, 8), (4, 40, 16384, 16),
-                                      (2, 24, 16384, 8)])
+                                      (2, 24, 16384, 8), (2, 1, 24, 16),
+                                      (1, 31, 130, 8), (2, 33, 300, 4),
+                                      (1, 31, 24, 16), (1, 33, 8192, 16)])
 def test_mamba_scan_kernel_matches_plain(cuda_device, x, dt, B, T, Di, S):
-    """The reference's sweep shapes, a T that is no multiple of the
-    kernel's 16-step chunk, a Di that is no multiple of its CTA's
-    channels, S of 4, 8 and 16, and 4, 2 and 1 lanes per channel (the
-    last two shapes); f32, bf16 and the f32 model's mix (bf16 dt)."""
+    """The reference's sweep shapes; T of 1 and one below and above the
+    plan's 32-step tile; Di of 24, 130 and 300 (no multiple of a CTA's
+    channels; bf16 rows of 260 and 600 bytes, which TMA cannot take);
+    S of 4, 8 and 16; one and two groups of 32 channels a CTA; f32,
+    bf16 and the f32 model's mix (bf16 dt)."""
     rng = np.random.default_rng(T + Di + S)
     args = _scan_inputs(rng, cuda_device, B, T, Di, S, x, dt)
     n0 = cuda.LAUNCHES["mamba_scan"]
@@ -693,6 +701,108 @@ def test_mamba_scan_kernel_matches_plain(cuda_device, x, dt, B, T, Di, S):
     torch.testing.assert_close(got, selective_scan_plain(*args),
                                **SCAN_TOL[torch.float32 if x == dt ==
                                           torch.float32 else torch.bfloat16])
+
+
+# (xc, dt) dtypes -> the ring's stages at S 16 with two groups a CTA: as
+# many as keep two CTAs on an SM
+SCAN_STAGES = {(torch.bfloat16, torch.bfloat16): 4,
+               (torch.float32, torch.bfloat16): 3,
+               (torch.float32, torch.float32): 2}
+
+
+@pytest.mark.parametrize("x,dt", list(SCAN_STAGES))
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("S", [4, 8, 16])
+def test_mamba_scan_every_plan(cuda_device, S, groups, x, dt):
+    """Every tiling the library holds (W = S / 4, one or two groups of 32
+    channels a CTA), reached through the shapes that ``scan_plan`` maps
+    to it, at T and Di tails, in each dtype pair; the stage counts that
+    the dtypes give at S 16."""
+    Di = 200 if groups == 1 else 64 * 66 + 7      # 2 x 67 CTAs of 64
+    rng = np.random.default_rng(S * 10 + groups)
+    args = _scan_inputs(rng, cuda_device, 2, 2 * 32 + 3, Di, S, x, dt)
+    got = selective_scan_bdt(*args)
+    launch = scan_kernel.LAST_LAUNCH
+    assert launch["plan"] == scan_kernel.ScanPlan(S // 4, groups)
+    assert 2 <= launch["stages"] <= 4 and launch["ctas_per_sm"] >= 1
+    if S == 16 and groups == 2:
+        assert launch["stages"] == SCAN_STAGES[x, dt]
+        assert launch["ctas_per_sm"] == 2
+    torch.testing.assert_close(got, selective_scan_plain(*args),
+                               **SCAN_TOL[torch.float32 if x == dt ==
+                                          torch.float32 else torch.bfloat16])
+
+
+def test_mamba_scan_plain_loads_path(cuda_device):
+    """xc and dt off 16-byte alignment (views one element into a wider
+    row) take the producer's plain loads, not TMA boxes, and agree with
+    their contiguous copies bit for bit."""
+    rng = np.random.default_rng(27)
+    B, T, Di, S = 2, 75, 192, 16
+    xd = torch.from_numpy(rng.standard_normal((B, T, 2 * Di + 1)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    xc = xd[..., 1:Di + 1]
+    wide = torch.zeros((B, T, Di + 1), device=cuda_device,
+                       dtype=torch.bfloat16)
+    wide[..., 1:] = xd[..., Di + 1:].abs() * 0.1
+    dt = wide[..., 1:]
+    assert not scan_kernel.tma_ok(xc) and not scan_kernel.tma_ok(dt)
+    *_, bm, cm, A, D = _scan_inputs(rng, cuda_device, B, T, Di, S,
+                                    torch.bfloat16, torch.bfloat16)
+    got = selective_scan_bdt(xc, dt, bm, cm, A, D)
+    assert scan_kernel.LAST_LAUNCH["loads"] == {"xc": "plain",
+                                                "dt": "plain"}
+    want = selective_scan_bdt(xc.contiguous(), dt.contiguous(), bm, cm, A,
+                              D)
+    assert scan_kernel.LAST_LAUNCH["loads"] == {"xc": "tma", "dt": "tma"}
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, selective_scan_plain(xc, dt, bm, cm, A,
+                                                         D),
+                               **SCAN_TOL[torch.bfloat16])
+
+
+def test_mamba_scan_flush_to_zero(cuda_device):
+    """dt A below -126 ln 2 on half the states: ex2.approx.ftz gives
+    exactly 0 there, the plain version a subnormal; within 2e-5."""
+    rng = np.random.default_rng(28)
+    xc, dt, bm, cm, A, D = _scan_inputs(rng, cuda_device, 1, 64, 256, 16)
+    dt = torch.full_like(dt, 2.0)
+    A = A.clone()
+    A[:, ::2] = -45.0                       # dt A = -90 < -87.3
+    torch.testing.assert_close(selective_scan_bdt(xc, dt, bm, cm, A, D),
+                               selective_scan_plain(xc, dt, bm, cm, A, D),
+                               **SCAN_TOL[torch.float32])
+
+
+def test_mamba_scan_kernel_matches_twin(cuda_device):
+    """The kernel against its CPU twin (the same tiling and order of
+    adds, each fused multiply-add rounded once), in f32.  With A = 0
+    every decay is exactly 1 and no exp rounds, so the two agree bit for
+    bit, and on these inputs the W partials added in reverse, or D x
+    added first, would not.  With A drawn, the kernel's ex2.approx and
+    the twin's exp2 part them by rounding only."""
+    rng = np.random.default_rng(29)
+    args = _scan_inputs(rng, cuda_device, 2, 70, 130, 16)
+    xc, dt, bm, cm, A, D = (t.cpu() for t in args)
+    zero = (xc, dt, bm, cm, torch.zeros_like(A), D)
+    got = selective_scan_bdt(*(t.to(cuda_device) for t in zero)).cpu()
+    assert torch.equal(got, selective_scan_tiles(*zero))
+    part, x = scan_tiles.partials(*zero[:5])
+    dx = torch.zeros(x.shape[-1])
+    dx[:D.shape[0]] = D
+    dx = dx * x
+    rev = part[-1]
+    for w in range(part.shape[0] - 2, -1, -1):
+        rev = rev + part[w]
+    first = dx + part[0]
+    for w in range(1, part.shape[0]):
+        first = first + part[w]
+    for other in (rev + dx, first):
+        assert not torch.equal(got, other[:, :70, :130])
+    got = selective_scan_bdt(*args).cpu()
+    torch.testing.assert_close(got, selective_scan_tiles(xc, dt, bm, cm, A,
+                                                         D),
+                               atol=2e-5, rtol=2e-5)
 
 
 def test_mamba_scan_kernel_reads_strides(cuda_device):

@@ -27,8 +27,7 @@ from repro.kernels.mamba_scan.ref import selective_scan_ref as jscan_ref
 from repro_torch import cuda
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels.mamba_scan import ops
-from repro_torch.kernels.mamba_scan.kernel import (lanes,
-                                                   selective_scan_bdt,
+from repro_torch.kernels.mamba_scan.kernel import (selective_scan_bdt,
                                                    selective_scan_plain)
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
@@ -185,13 +184,3 @@ def test_scan_cpu_counts_no_launch():
     ops.selective_scan(*args)
     selective_scan_bdt(*args)
     assert cuda.LAUNCHES == before and "mamba_scan" in before
-
-
-@pytest.mark.parametrize("B,Di,S,want", [(1, 16384, 16, 4), (2, 16384, 16, 2),
-                                         (4, 16384, 16, 1), (1, 16, 4, 4),
-                                         (1, 16, 8, 4), (8, 16384, 16, 1),
-                                         (1, 65536, 16, 1)])
-def test_lanes_fill_the_card(B, Di, S, want):
-    """Threads per channel: 4 at jamba's B 1 (Di 16384), fewer as B * Di
-    grows, never more than S or 4."""
-    assert lanes(B, Di, S) == want
