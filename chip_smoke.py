@@ -35,6 +35,30 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              counters read (every rmsnorm launch on the vector body,
              each case printed with its tiling); every output checked
              against its plain version and the collective's meaning;
+3n. neighbor — random neighbor graphs on Topology(8,8), (8,4), (16,4)
+             and (12,3), both plan modes, f32 and bf16 with negative
+             zeros, slots [2, 64] and [3, 7]: ``KernelTransport.run_global``
+             bitwise equal to ``SimTransport.run`` (on the raw bits: the
+             plans only copy) and to the plain version; both bodies of
+             the transport kernel forced on each plan and equal; one KV
+             plan over 1,700 rows on the global body;
+3k. kv     — the continuous-batching engine at a real size: 8 ranks in
+             two pods of 4, 1024 blocks a rank of 16 tokens x 2048
+             floats (gemma2-2b's K and V of one layer, f32: a 1.07 GB
+             pool on the card), the Poisson trace of 40 requests (seed
+             0, rate 6.0, 3 tenants, mean prompt 2048) on the kernel
+             transport: counters reset, the trace run, counters read (one
+             launch per batch; the global body on every batch too tall
+             for shared memory; every batch verified bitwise by the
+             engine); the transfer log, metrics and final pool equal to
+             the same engine on the numpy transport; each batch replayed
+             (host ms from cold caches, kernel ms beside its bound and
+             the ``g.clone()`` copy floor); the largest batch timed
+             against its plain version and ``index_select`` of its row
+             map (the global body's row of the kernels line);
+3c. launcher — ``python -m repro_torch.launch.serve --arch gemma2-2b
+             --continuous --kv-transport kernel`` in a subprocess: exit 0,
+             every request served;
 4. serve   — gemma2-2b at full width (26 layers, random weights from a
              seeded generator on the card): (a) counters reset, the
              kernel prefill of one 8192-token prompt, counters read (26
@@ -165,9 +189,15 @@ def main() -> int:
     print(card, flush=True)
 
     parity(torch, dev)
+    neighbor_parity(torch, dev)
     attn_err = attention_parity(torch, dev)
     wkv_err = wkv6_parity(torch, dev)
     cases = main_path(torch, dev)
+    kvrun = kv_path(torch, dev)
+    global_row = global_body_timing(torch, kvrun)
+    del kvrun
+    torch.cuda.empty_cache()
+    launcher_continuous(torch)
     served = serve_path(torch, dev)
     gathered = gather_path(torch, dev, served)
     rwkv_served = rwkv_serve_path(torch, dev)
@@ -178,6 +208,8 @@ def main() -> int:
     # device records (see device_ms)
     early = early_device_ms(torch, rwkv_served, jamba_served)
     kernels = timing(torch, cases)
+    next(k for k in kernels
+         if k["name"] == "schedule_exec")["global_body"] = global_row
     kernels += attention_timing(torch, served, gathered, attn_err)
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["cases"].append(jamba_attention_timing(torch, jamba_served,
@@ -527,7 +559,9 @@ def time_long_ms(torch, fn, *args) -> tuple[float, str]:
     return time_ms(torch, fn, *args), f"{REPS} calls x {BATCHES} batches"
 
 
+TRACE_TRIES = 3
 KERNEL_SYMBOLS = {"schedule_exec": "schedule_exec_kernel",
+                  "schedule_exec_global": "schedule_exec_global_kernel",
                   # either body: rmsnorm_vec_kernel (16-byte vectors, rows
                   # in registers) or rmsnorm_rows_kernel (scalar)
                   "rmsnorm_reduce": "rmsnorm_",
@@ -554,30 +588,36 @@ def device_ms(torch, kernel: str, fn, *args, reps=REPS,
     or jamba's plain attention had been timed, held the launches' host
     records but only some or none of their device records, so the time
     is taken over the records present; the kernels timed last are
-    profiled before those timings (``early_device_ms``)."""
+    profiled before those timings (``early_device_ms``), and a trace
+    with no device record of the kernel at all is taken again, up to
+    ``TRACE_TRIES`` traces (on the card, one to three of a run's traces
+    came back so, at no fixed place in the script)."""
     import re
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    ms = 0.0
-    rows = prof.key_averages()
-    for e in rows:
-        if KERNEL_SYMBOLS[kernel] in e.key and e.count:
-            t = (getattr(e, "device_time_total", None)
-                 or getattr(e, "cuda_time_total", 0)) / e.count / 1e3
-            ms += t
-            if split is not None:
+    for attempt in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        ms, found = 0.0, {}
+        rows = prof.key_averages()
+        for e in rows:
+            if KERNEL_SYMBOLS[kernel] in e.key and e.count:
+                t = (getattr(e, "device_time_total", None)
+                     or getattr(e, "cuda_time_total", 0)) / e.count / 1e3
+                ms += t
                 name = re.search(r"(\w+_kernel)", e.key)
-                split[name.group(1) if name else e.key[:60]] = t
-    if ms:
-        return ms
-    print(f"device_ms({kernel}): the trace holds no device time for "
-          f"{KERNEL_SYMBOLS[kernel]!r}; its {len(rows)} keys: "
-          f"{[(e.key[:60], e.count) for e in rows][:8]}", flush=True)
+                found[name.group(1) if name else e.key[:60]] = t
+        if ms:
+            if split is not None:
+                split.update(found)
+            return ms
+        print(f"device_ms({kernel}): trace {attempt} of {TRACE_TRIES} "
+              f"holds no device time for {KERNEL_SYMBOLS[kernel]!r}; its "
+              f"{len(rows)} keys: {[(e.key[:60], e.count) for e in rows][:8]}",
+              flush=True)
     return None
 
 
@@ -635,6 +675,10 @@ def timing(torch, cases) -> list[dict]:
                                              gbuf)
             extra["floor_ms"] = (c["launch"]["floor_bytes"]
                                  / HBM_BYTES_PER_S * 1e3)
+            # the same schedule on the global-memory body, forced
+            kex = get_kernel_exec(c["sched"], topo=c["topo"])
+            extra["global_body_ms"] = time_ms(
+                torch, lambda g: kex.run(g, _body="global"), gbuf)
             extra["rounds"] = ex.rounds_after
             extra["launch"] = c["launch"]
         else:
@@ -694,6 +738,348 @@ def timing(torch, cases) -> list[dict]:
                      "library_ms": first["library_ms"],
                      "cases": [c["row"] for c in mine]})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# neighbor collectives and the continuous-batching KV path
+# ---------------------------------------------------------------------------
+
+
+NEIGHBOR_TOPOS = [(8, 8), (8, 4), (16, 4), (12, 3)]
+NEIGHBOR_SLOTS = [(2, 64), (3, 7)]    # the 16-byte and the scalar path
+# the KV case: 8 ranks in two pods of 4 (prefill pod, decode pod),
+# vLLM's default block of 16 tokens, each token's K and V of one
+# gemma2-2b layer (2 x 4 KV heads x head_dim 256 = 2048 floats,
+# arXiv:2408.00118), f32 as the engine keeps it: a 128 KiB block, a
+# 1.07 GB pool
+KV_CONFIG = dict(prefill_ranks=4, decode_ranks=4, ranks_per_pod=4,
+                 blocks_per_rank=1024, block_tokens=16, block_feat=2048)
+KV_TRACE = dict(arrival_rate=6.0, tenants=3, n_requests=40,
+                mean_prompt=2048, max_prompt=8192)
+TALL_ROWS = 1700      # about where the shared body stops fitting (f32)
+
+
+def _ints(t):
+    """A float tensor's raw bits, as integers of its width."""
+    import torch
+    return t.contiguous().view({4: torch.int32, 2: torch.int16}[
+        t.element_size()])
+
+
+def _np_bits(t):
+    """The raw bits as a numpy integer array (for the numpy oracle:
+    neighbor plans only copy, so their bits move unchanged)."""
+    return _ints(t).cpu().numpy()
+
+
+def neighbor_parity(torch, dev) -> None:
+    """(n) Random neighbor graphs on four topologies, both plan modes,
+    f32 and bf16 with negative zeros: ``KernelTransport.run_global``
+    bitwise equal to ``SimTransport.run`` (on the raw bits) and to
+    ``schedule_exec_plain``; on each plan both bodies forced and equal;
+    then one plan too tall for shared memory on the global body."""
+    from repro_torch import cuda
+    from repro_torch.core import kvtransfer
+    from repro_torch.core.kernel_lowering import (get_kernel_exec,
+                                                  schedule_exec_plain)
+    from repro_torch.core.plan import CommGraph, build_plan
+    from repro_torch.core.topology import Topology
+    from repro_torch.core.transport import KernelTransport, SimTransport
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    checked, paths = 0, set()
+    both = {True: 0, False: 0}       # runs with both bodies / global only
+
+    def check(plan, topo, slot, label):
+        """Default pick, then each body forced (the shared one where the
+        plan fits it): all bitwise equal to the oracle."""
+        nonlocal checked
+        n = topo.nranks
+        kex = get_kernel_exec(plan.schedule, topo=topo)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.randn((n, plan.buf_rows) + slot, generator=gen,
+                            device=dev).to(dtype)
+            g.view(-1)[::7] = -0.0
+            bits = _np_bits(g)
+            want = SimTransport(n, topo=topo).run(plan.schedule, bits)
+            got = KernelTransport(n, topo=topo).run_global(plan.schedule, g)
+            torch.cuda.synchronize()
+            body = kex.last_launch["body"]
+            _require(_np_bits(got).tobytes() == want.tobytes(),
+                     f"{label} {dtype}: kernel ({body} body) != "
+                     f"SimTransport.run")
+            plain = schedule_exec_plain(kex.ex, g)
+            _require(torch.equal(_ints(got), _ints(plain)),
+                     f"{label} {dtype}: kernel != plain version")
+            bodies = ("shared", "global") if body == "shared" else \
+                ("global",)
+            for b in bodies:
+                forced = kex.run(g, _body=b)
+                torch.cuda.synchronize()
+                paths.add((b, kex.last_launch["path"]))
+                _require(_np_bits(forced).tobytes() == want.tobytes(),
+                         f"{label} {dtype}: the {b} body differs")
+            both[len(bodies) == 2] += 1
+            checked += 1
+        return kex
+
+    for n, rpp in NEIGHBOR_TOPOS:
+        topo = Topology(n, rpp)
+        rng = np.random.default_rng(100 * n + rpp)
+        for aggregate in (False, True):
+            # the reference test's graph size (every plan fits shared
+            # memory, so both bodies run), then a denser one
+            for n_local, degree in ((8, 4), (24, 6)):
+                graph = CommGraph.random(n, n_local=n_local,
+                                         degree=min(n - 1, degree), rng=rng,
+                                         dup_frac=0.7)
+                plan = build_plan(graph, topo, aggregate=aggregate)
+                for slot in NEIGHBOR_SLOTS:
+                    check(plan, topo, slot, f"{topo.fingerprint()} "
+                          f"{plan.name} n_local {n_local} {list(slot)}")
+    # one plan too tall for shared memory: a KV batch of 600 moves over
+    # pools of 256 blocks a rank
+    topo = Topology(8, 4)
+    rng = np.random.default_rng(7)
+    moves, used = [], set()
+    while len(moves) < 600:
+        s, d = int(rng.integers(4)), 4 + int(rng.integers(4))
+        row, dr = int(rng.integers(256)), int(rng.integers(256))
+        if (d, dr) not in used:
+            used.add((d, dr))
+            moves.append(kvtransfer.BlockMove(s, row, d, dr))
+    tp = kvtransfer.build_transfer_plan(moves, topo, blocks_per_rank=256,
+                                        aggregate=True, block_bytes=4096)
+    _require(8 * tp.schedule.num_slots > TALL_ROWS, "the tall plan is short")
+    before = cuda.TRANSPORT_BODIES["global"]
+    kex = check(tp.plan, topo, (4, 256), f"tall {tp.plan.name} "
+                f"{8 * tp.schedule.num_slots} rows")
+    _require(kex.last_launch["body"] == "global"
+             and cuda.TRANSPORT_BODIES["global"] >= before + 4,
+             "the tall plan did not take the global body")
+    _require(both[True] >= len(NEIGHBOR_TOPOS) * 2 * 2 * 2,
+             "neighbor: a small plan did not fit the shared body")
+    print(f"neighbor: {checked} plan x dtype runs bitwise (kernel = "
+          f"SimTransport.run = plain version; {both[True]} with both "
+          f"bodies forced and equal, {both[False]} too tall for the shared "
+          f"one; bodies and paths {sorted(paths)}), the tall plan of "
+          f"{8 * tp.schedule.num_slots} rows on the global body, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _row_map(sched, n: int) -> np.ndarray:
+    """A copy-only schedule as one row gather: the input row each output
+    row holds (the schedule run on row ids)."""
+    from repro_torch.core.transport import SimTransport
+    ids = np.arange(n * sched.num_slots, dtype=np.int64).reshape(
+        n, sched.num_slots, 1)
+    return SimTransport(n).run(sched, ids).reshape(-1)
+
+
+def kv_path(torch, dev) -> dict:
+    """(k) The continuous-batching engine at a real size on the transport
+    kernel: counters reset, the trace run, counters read (one launch per
+    batch, the global body on every batch too tall for shared memory,
+    every batch verified bitwise by the engine); the transfer log and
+    the final pool held against the same engine on the numpy ``sim``
+    transport; then each batch replayed: host ms (plan, executor and
+    kernel table from cold caches), kernel ms (CUDA events) beside its
+    bound and the ``g.clone()`` copy floor."""
+    from repro_torch import cuda
+    from repro_torch.core import executor, kernel_lowering, kvtransfer
+    from repro_torch.core.kernel_lowering import get_kernel_exec, pick_tile
+    from repro_torch.serve.engine import ContinuousBatchingEngine, \
+        EngineConfig
+    from repro_torch.serve.traffic import poisson_workload, run_workload
+
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(EngineConfig(
+        **KV_CONFIG, transport="kernel", device="cuda"))
+    trace = poisson_workload(0, **KV_TRACE)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t1 = time.perf_counter()
+    m = run_workload(eng, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(cuda.LAUNCHES)
+    bodies = dict(cuda.TRANSPORT_BODIES)
+    kv = m["kv_transfer"]
+    print(f"kv path: {m['completed']}/{m['submitted']} requests in "
+          f"{m['steps']} steps, {m['tokens']} tokens, {kv['plans']} plans "
+          f"{kv['plan_names']}, {kv['blocks']} blocks, {kv['bytes']} B "
+          f"({kv['dcn_bytes']} B dcn / {kv['ici_bytes']} B ici), every "
+          f"batch bitwise; {wall:.2f} s wall (host clock), transfers "
+          f"{kv['wall_s']} s; launches {launches}, transport bodies "
+          f"{bodies}; pool {tuple(eng.kv.shape)} "
+          f"{eng.kv.numel() * 4 / 1e9:.3f} GB on the card", flush=True)
+    _require(m["completed"] == m["submitted"] == KV_TRACE["n_requests"],
+             "kv path: not every request completed")
+    _require(launches["schedule_exec"] == kv["plans"],
+             "kv path: not one schedule_exec launch per batch")
+    elem = 4
+    L = KV_CONFIG["block_tokens"] * KV_CONFIG["block_feat"]
+    tall = 0
+    for x in eng.transfer_log:
+        tp = kvtransfer.build_transfer_plan(
+            list(x["moves"]), eng.topo,
+            blocks_per_rank=KV_CONFIG["blocks_per_rank"],
+            block_bytes=eng.cfg.block_bytes)
+        t = get_kernel_exec(tp.schedule, topo=eng.topo).tables
+        ns = eng.topo.nranks * tp.schedule.num_slots
+        tall += pick_tile(ns, t["stage_rows"], elem, L, "kv",
+                          len(t["tab"]))[0] == "global"
+    _require(bodies["global"] == tall and tall > 0,
+             f"kv path: {bodies['global']} global-body launches for "
+             f"{tall} batches too tall for shared memory")
+    kv_final = eng.kv.cpu().numpy()
+    topo = eng.topo
+    log = [{k: v for k, v in x.items() if k != "seconds"}
+           for x in eng.transfer_log]
+    seconds = [x["seconds"] for x in eng.transfer_log]
+    del eng
+    torch.cuda.empty_cache()
+
+    # the same engine on the numpy transport, pool on the host
+    t1 = time.perf_counter()
+    ref = ContinuousBatchingEngine(EngineConfig(
+        **KV_CONFIG, transport="sim", device="cpu"))
+    rm = run_workload(ref, poisson_workload(0, **KV_TRACE))
+    _require([{k: v for k, v in x.items() if k != "seconds"}
+              for x in ref.transfer_log] == log,
+             "kv path: the transfer log differs from the sim engine's")
+    _require(rm["kv_transfer"]["plan_names"] == kv["plan_names"]
+             and rm["steps"] == m["steps"] and rm["tokens"] == m["tokens"],
+             "kv path: metrics differ from the sim engine's")
+    _require(ref.kv.numpy().tobytes() == kv_final.tobytes(),
+             "kv path: the final pool differs from the sim engine's")
+    print(f"kv path: transfer log, metrics and the final pool equal to the "
+          f"same engine on sim ({time.perf_counter() - t1:.2f} s on the "
+          f"host)", flush=True)
+    del ref, kv_final
+
+    # replay each batch: host cost from cold caches, then the kernel
+    pool = torch.randn((topo.nranks, KV_CONFIG["blocks_per_rank"],
+                        KV_CONFIG["block_tokens"], KV_CONFIG["block_feat"]),
+                       device=dev)
+    rows = []
+    for i, x in enumerate(log):
+        executor.clear_cache()
+        kernel_lowering.clear_cache()
+        h0 = time.perf_counter()
+        tp = kvtransfer.build_transfer_plan(
+            list(x["moves"]), topo,
+            blocks_per_rank=KV_CONFIG["blocks_per_rank"],
+            block_bytes=elem * L)
+        kex = get_kernel_exec(tp.schedule, topo=topo)
+        host_ms = (time.perf_counter() - h0) * 1e3
+        g = pool.new_zeros((topo.nranks, tp.schedule.num_slots)
+                           + tuple(pool.shape[2:]))
+        g[:, : KV_CONFIG["blocks_per_rank"]] = pool
+        ms = time_ms(torch, kex.run, g, reps=5, batches=3)
+        run = dict(kex.last_launch)
+        clone_ms = time_ms(torch, lambda a: a.clone(), g, reps=5, batches=3)
+        bound = run["floor_bytes"] / HBM_BYTES_PER_S * 1e3
+        row = {"batch": i, "step": x["step"], "rows": run["rows"],
+               "rows_loaded": run["rows_loaded"], "moves": x["blocks"],
+               "plan": x["plan"], "rounds": kex.rounds,
+               "body": run["body"], "path": run["path"], "ms": ms,
+               "bound_ms": bound, "clone_ms": clone_ms, "host_ms": host_ms,
+               "engine_transfer_ms": seconds[i] * 1e3}
+        rows.append(row)
+        print(f"kv batch {i:2d} (step {x['step']}): {run['rows']} rows "
+              f"({run['rows_loaded']} loaded), {x['blocks']} moves, "
+              f"{x['plan']} {kex.rounds} rounds, {run['body']} body "
+              f"({run['path']}): {ms:.4f} ms (bound {bound:.4f} ms, "
+              f"g.clone() {clone_ms:.4f} ms), host {host_ms:.2f} ms, "
+              f"engine transfer {seconds[i] * 1e3:.2f} ms", flush=True)
+        del g
+    big = max(range(len(rows)), key=lambda i: rows[i]["rows"])
+    x = log[big]
+    tp = kvtransfer.build_transfer_plan(
+        list(x["moves"]), topo,
+        blocks_per_rank=KV_CONFIG["blocks_per_rank"],
+        block_bytes=elem * L)
+    g = pool.new_zeros((topo.nranks, tp.schedule.num_slots)
+                       + tuple(pool.shape[2:]))
+    g[:, : KV_CONFIG["blocks_per_rank"]] = pool
+    del pool
+    print(f"kv path: phase {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"metrics": m, "launches": launches["schedule_exec"],
+            "global_launches": bodies["global"], "batches": rows,
+            "largest": {"sched": tp.schedule, "topo": tp.topo, "gbuf": g,
+                        "batch": big}}
+
+
+def global_body_timing(torch, kvrun) -> dict:
+    """The global body at the largest KV batch: kernel ms and device ms,
+    its plain version, the bound, the copy floor and the one-call
+    library equivalent (``index_select`` of the schedule's row map)."""
+    from repro_torch.core.kernel_lowering import (get_kernel_exec,
+                                                  schedule_exec_plain)
+    big = kvrun["largest"]
+    g, sched, topo = big["gbuf"], big["sched"], big["topo"]
+    kex = get_kernel_exec(sched, topo=topo)
+    out = kex.run(g)
+    torch.cuda.synchronize()
+    run = dict(kex.last_launch)
+    _require(run["body"] == "global", "the largest KV batch: not global")
+    plain = schedule_exec_plain(kex.ex, g)
+    _require(torch.equal(_ints(out), _ints(plain)),
+             "the largest KV batch: kernel != plain version")
+    del plain
+    rmap = torch.from_numpy(_row_map(sched, topo.nranks)).to(g.device)
+    flat = g.view(-1, g[0, 0].numel())
+    _require(torch.equal(_ints(flat.index_select(0, rmap)),
+                         _ints(out.view(flat.shape))),
+             "the largest KV batch: index_select of the row map differs")
+    ms = time_ms(torch, kex.run, g, reps=5, batches=5)
+    dev_ms = device_ms(torch, "schedule_exec_global", kex.run, g, reps=5)
+    plain_ms = time_ms(torch, lambda a: schedule_exec_plain(kex.ex, a), g,
+                       reps=1, batches=3)
+    lib_ms = time_ms(torch, lambda a: a.view(flat.shape).index_select(
+        0, rmap), g, reps=5, batches=5)
+    clone_ms = time_ms(torch, lambda a: a.clone(), g, reps=5, batches=5)
+    bound = run["floor_bytes"] / HBM_BYTES_PER_S * 1e3
+    row = {"case": f"KV batch {big['batch']}: {run['rows']} rows of "
+                   f"[16, 2048] f32, {len(kex.ex._rounds)} rounds",
+           "launches": kvrun["global_launches"], "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes", "library_ms": lib_ms,
+           "library_call": "flat.index_select(0, row_map) (the schedule "
+                           "composed into one row gather)",
+           "copy_floor_ms": clone_ms, "max_abs_err": 0.0, "launch": run,
+           "batches": kvrun["batches"]}
+    print(f"{'schedule_exec':>15} | global body, {row['case']}: {ms:.4f} ms "
+          f"[device {dev_ms if dev_ms is None else round(dev_ms, 4)}] "
+          f"(bound {bound:.4f} ms by bytes, {run['floor_bytes'] / ms / 1e6:.1f}"
+          f" GB/s), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+          f"[index_select], g.clone() {clone_ms:.4f} ms; launches on the KV "
+          f"path {kvrun['global_launches']}", flush=True)
+    return row
+
+
+def launcher_continuous(torch) -> None:
+    """(c) The launcher's continuous path on the card, in a subprocess."""
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "gemma2-2b", "--continuous", "--kv-transport", "kernel"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    print(res.stdout.strip(), flush=True)
+    _require(res.returncode == 0,
+             f"launcher --continuous exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    served = [ln for ln in res.stdout.splitlines()
+              if ln.startswith("continuous: ")]
+    _require(bool(served), "launcher --continuous printed no summary")
+    done, submitted = served[0].split()[1].split("/")
+    _require(done == submitted, f"launcher served {done}/{submitted}")
+    print(f"launcher: {' '.join(cmd[1:])}: {done}/{submitted} requests "
+          f"served, {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,8 @@ publicly selectable ``algorithm=`` argument, over ``torch.distributed``.
     y = mpix_allreduce(x, group)                           # default select
     y = mpix_allreduce(x, group, algorithm="hierarchical", topo=topo)
     y = mpix_allgather(x, group, algorithm="bruck", transport="kernel")
+    plan = make_neighbor_plan(graph, topo)                 # once, on the host
+    y = mpix_neighbor_alltoallv(x, group, plan)
 
 Every rank of ``group`` (a ``ProcessGroup``; ``None`` = the default
 group) calls with its local tensor; the group rank is the schedule rank.
@@ -253,6 +255,114 @@ def mpix_alltoall(x: torch.Tensor, group=None, *, algorithm: str = "auto",
     return out[: sched.result_blocks].reshape(x.shape)
 
 
+def mpix_alltoall_overlap(x: torch.Tensor, group, consume, init, *,
+                          chunks: int = 0, compute_s: float = 0.0,
+                          algorithm: str = "auto",
+                          policy: str | None = None,
+                          topo: Topology | None = None,
+                          transport: str = "dist", resilience=None):
+    """Partitioned (pipelined) alltoall: the exchange runs in row
+    chunks and each chunk's output is folded through
+    ``consume(carry, out_chunk, i) -> carry`` as soon as it lands, so a
+    consumer can start on chunk ``i`` before the later chunks arrive
+    (MPIPCL early-bird receive on the MoE dispatch path).
+
+    ``out_chunk`` is the alltoall of the matching row slice of every
+    block: shape [(n * rows/chunks), ...] with the usual alltoall block
+    order.  ``chunks=0`` lets the model pick (``tuner.
+    select_overlap_chunks`` prices the pipeline against ``compute_s``
+    seconds of consumer compute); ``chunks=1`` is one ``mpix_alltoall``
+    and one ``consume`` call.  Explicit ``chunks>1`` must divide the
+    per-block row count."""
+    _check_call(transport, resilience)
+    _, topo = _group_topology(group, topo)
+    n = topo.nranks
+    nbytes = x.numel() * x.element_size()
+    if x.shape[0] % n:
+        raise ValueError(
+            f"mpix_alltoall_overlap: leading dim {x.shape[0]} of input "
+            f"shape {tuple(x.shape)} must be divisible by nranks={n} "
+            f"(one block per destination rank)")
+    if chunks < 0:
+        raise ValueError(
+            f"mpix_alltoall_overlap: chunks must be >= 0, got {chunks}")
+    rows = x.shape[0] // n
+    if chunks == 0:
+        from repro_torch.core import tuner  # local: avoid import cycle
+        chunks = tuner.select_overlap_chunks(
+            topo, nbytes, compute_s, policy=policy or _DEFAULT_POLICY)
+        while rows % chunks:          # auto-picked: clamp to a divisor
+            chunks -= 1
+    elif chunks > 1 and rows % chunks:
+        raise ValueError(
+            f"mpix_alltoall_overlap: per-block row count {rows} must "
+            f"be divisible by chunks={chunks}")
+    if chunks <= 1:
+        return consume(init, mpix_alltoall(x, group, algorithm=algorithm,
+                                           policy=policy, topo=topo,
+                                           transport=transport), 0)
+    rc = rows // chunks
+    tail = tuple(x.shape[1:])
+    algo = _algorithm("alltoall", algorithm, policy, topo, nbytes)
+    if algo == "xla":
+        blocks = x.reshape((n, chunks, rc) + tail)
+        carry = init
+        for i in range(chunks):
+            xi = blocks[:, i].reshape((n * rc,) + tail).contiguous()
+            out = torch.empty_like(xi)
+            dist.all_to_all_single(out, xi, group=group)
+            carry = consume(carry, out, i)
+        return carry
+    sched = _schedule("alltoall", algo, topo)
+    blocks = x.reshape((n, rows) + tail)
+    if sched.num_blocks > n:          # schedules with a separate recv region
+        pad = blocks.new_zeros((sched.num_blocks - n,)
+                               + tuple(blocks.shape[1:]))
+        blocks = torch.cat([blocks, pad], 0)
+
+    def fold(carry, out_c, i):
+        return consume(carry, out_c[: sched.result_blocks]
+                       .reshape((n * rc,) + tail), i)
+
+    return _transport(transport, topo, group).run_chunked(
+        sched, blocks, chunks=chunks, consume=fold, init=init)
+
+
+# ---------------------------------------------------------------------------
+# neighborhood collectives (paper §2.2, Listing 3/4)
+# ---------------------------------------------------------------------------
+
+
+def make_neighbor_plan(graph, topo: Topology, *,
+                       aggregate: bool | None = None,
+                       policy: str | None = None,
+                       elem_bytes: int | None = None):
+    """Compile a persistent neighborhood-alltoallv plan (on the host,
+    once).  ``aggregate=None`` resolves standard-vs-locality-aware via
+    the selection policy ladder (process default when ``policy=None``).
+    ``elem_bytes`` is the byte width of one value row (feat * itemsize)
+    — it anchors the model comparison, so pass it whenever rows are
+    wider than one float32."""
+    from repro_torch.core.plan import ELEM_BYTES, build_plan
+    return build_plan(graph, topo, aggregate=aggregate,
+                      policy=policy or _DEFAULT_POLICY,
+                      elem_bytes=ELEM_BYTES if elem_bytes is None
+                      else elem_bytes)
+
+
+def mpix_neighbor_alltoallv(x: torch.Tensor, group, plan, *,
+                            transport: str = "dist",
+                            resilience=None) -> torch.Tensor:
+    """Execute a compiled ``NeighborPlan`` on every rank of ``group``.
+
+    ``x`` is this rank's [n_local_max, feat] value rows; returns
+    [n_recv_max, feat] (rows past this rank's recv size are zeros)."""
+    _check_call(transport, resilience)
+    from repro_torch.core.plan import run_dist
+    _group_topology(group, plan.topo)
+    return run_dist(plan, x, group, transport=transport)
+
+
 # ---------------------------------------------------------------------------
 # compute-fused terminal rounds
 # ---------------------------------------------------------------------------
@@ -289,7 +399,8 @@ def mpix_allreduce_rmsnorm(x: torch.Tensor, group, scale: torch.Tensor, *,
 
 __all__ = [
     "mpix_allgather", "mpix_allreduce", "mpix_reduce_scatter",
-    "mpix_alltoall", "mpix_allreduce_rmsnorm",
+    "mpix_alltoall", "mpix_alltoall_overlap", "mpix_allreduce_rmsnorm",
+    "mpix_neighbor_alltoallv", "make_neighbor_plan",
     "set_default_policy", "get_default_policy", "executor_cache_stats",
     "clear_executor_cache", "invalidate_topology", "TRANSPORTS",
 ]

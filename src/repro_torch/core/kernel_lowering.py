@@ -18,7 +18,12 @@ repeats (its landings keep (edge, position) order).
 
 Rows never mix, so the kernel's persistent CTAs walk column tiles of
 the flattened slot payload across all ``nranks * num_slots`` rows and
-run every round for a tile in shared memory.  ``chunks > 1`` splits the
+run every round for a tile in shared memory (the shared body).  A
+schedule whose rows do not fit one CTA's shared memory (a neighbor or
+KV-transfer plan of thousands of rows) takes the global body of the same
+source: the work rows in device memory, the same rounds, still one
+launch (``pick_tile`` chooses; ``last_launch["body"]`` says which ran,
+``cuda.TRANSPORT_BODIES`` counts them).  ``chunks > 1`` splits the
 slot row axis into column ranges of the same launch (bit-identical;
 still one launch), the row decomposition ``Transport.run_chunked``
 relies on.
@@ -50,6 +55,8 @@ WIDE_ROW_BYTES = 256       # narrower rows cost device-memory rate
 MAX_BUFS = 4
 MAX_BOX_ROWS = 256         # a TMA box spans at most 256 rows
 REDUCE, DIRECT, ORDERED = 1, 2, 4   # round flags in the kernel's meta
+GLOBAL_ROW_BYTES = 128     # the global body's tile: 128 B of each row
+GLOBAL_CTAS_PER_SM = 8     # the global body's persistent grid (256 threads)
 
 
 def _round_pairs(rnd, s: int) -> tuple[np.ndarray, np.ndarray]:
@@ -153,7 +160,8 @@ def _pack_tables(ex: CompiledExec) -> dict:
             "store_classes": sum({1 << k for _, _, k in stores}),
             "direct": np.asarray(direct, bool),
             "ordered": np.asarray(ordered, bool), "rounds": rounds,
-            "stage_rows": stage_rows}
+            "stage_rows": stage_rows,
+            "post_identity": bool((post_row == np.arange(ns)).all())}
 
 
 _TABLES: "weakref.WeakKeyDictionary[CompiledExec, dict]" = \
@@ -176,16 +184,10 @@ def smem_bytes(ns: int, stage_rows: int, elem: int, tile: int, nbuf: int,
             + (nbuf * ns + stage_rows) * tile * elem)
 
 
-def pick_tile(ns: int, stage_rows: int, elem: int, chunk_len: int,
-              name: str, ntab: int = 0) -> tuple[int, int]:
-    """Columns per item and buffers per CTA.  Rows of at least
-    ``WIDE_ROW_BYTES`` (or the widest the row allows) keep device memory
-    efficient; among those, the widest tile whose ring of two buffers
-    fits the three-CTAs-per-SM target, with as many buffers (up to four)
-    as that target holds; else the narrowest such tile with as many
-    buffers as one CTA may hold; else the narrowest tile (rows of 128 B)
-    with as many as fit.  Raises ``ValueError`` when not even one buffer
-    of that fits."""
+def _shared_tile(ns: int, stage_rows: int, elem: int, chunk_len: int,
+                 ntab: int) -> tuple[int, int] | None:
+    """The shared body's (columns per item, buffers per CTA), or None
+    when not even one buffer of 128-byte rows fits one CTA."""
     narrow = MIN_ROW_BYTES // elem
     cap = max(narrow, -(-chunk_len // narrow) * narrow)
     tiles = [t for t in TILES if narrow <= t <= cap]
@@ -204,10 +206,37 @@ def pick_tile(ns: int, stage_rows: int, elem: int, chunk_len: int,
             return tile, buffers(tile, SMEM_MAX)
     if buffers(narrow, SMEM_MAX):
         return narrow, buffers(narrow, SMEM_MAX)
-    raise ValueError(
-        f"schedule {name!r}: {ns} slots + {stage_rows} staged payloads "
-        f"x {narrow} columns x {elem} B exceed the {SMEM_MAX} B of shared "
-        f"memory one CTA may use")
+    return None
+
+
+def pick_tile(ns: int, stage_rows: int, elem: int, chunk_len: int,
+              name: str, ntab: int = 0, *,
+              body: str | None = None) -> tuple[str, int, int]:
+    """(body, columns per item, buffers per CTA).
+
+    The shared body holds every row of a column tile in shared memory.
+    Rows of at least ``WIDE_ROW_BYTES`` (or the widest the row allows)
+    keep device memory efficient; among those, the widest tile whose
+    ring of two buffers fits the three-CTAs-per-SM target, with as many
+    buffers (up to four) as that target holds; else the narrowest such
+    tile with as many buffers as one CTA may hold; else the narrowest
+    tile (rows of 128 B) with as many as fit.  A schedule of which not
+    even one such buffer fits takes the global body: rows of
+    ``GLOBAL_ROW_BYTES`` a tile, no buffers.  ``body`` forces one (tests
+    and the card smoke only); forcing the shared body on a schedule it
+    cannot hold raises ``ValueError``."""
+    if body not in (None, "shared", "global"):
+        raise ValueError(f"unknown body {body!r}; expected shared | global")
+    shared = (None if body == "global"
+              else _shared_tile(ns, stage_rows, elem, chunk_len, ntab))
+    if shared is not None:
+        return ("shared",) + shared
+    if body == "shared":
+        raise ValueError(
+            f"schedule {name!r}: {ns} slots + {stage_rows} staged payloads "
+            f"x {MIN_ROW_BYTES // elem} columns x {elem} B exceed the "
+            f"{SMEM_MAX} B of shared memory one CTA may use")
+    return "global", GLOBAL_ROW_BYTES // elem, 0
 
 
 def schedule_exec_plain(ex: CompiledExec, gbuf: torch.Tensor) -> torch.Tensor:
@@ -274,10 +303,11 @@ class KernelExec:
         self.launches = 0
         self.tables = tables(ex)
         self._dev: dict = {}
-        self._plans: dict = {}       # (elem, chunk_len) -> (tile, buffers)
+        self._plans: dict = {}       # (elem, chunk_len, forced) -> pick_tile
         self._info = (ctypes.c_int * 3)()
-        # what the last launch ran: tile, buffers, grid, CTAs per SM,
-        # path, rows loaded and the design floor in bytes
+        # what the last launch ran: its body, tile, grid and path, rows
+        # loaded and the design floor in bytes; the shared body's
+        # buffers and CTAs per SM, the global body's scratch bytes
         self.last_launch: dict | None = None
 
     def device_table(self, device: torch.device) -> torch.Tensor:
@@ -288,7 +318,10 @@ class KernelExec:
                 self.tables["tab"]).to(device)
         return tab
 
-    def run(self, gbuf: torch.Tensor, *, chunks: int = 1) -> torch.Tensor:
+    def run(self, gbuf: torch.Tensor, *, chunks: int = 1,
+            _body: str | None = None) -> torch.Tensor:
+        """``_body`` forces the shared or the global body (tests and the
+        card smoke only)."""
         n, s = self.nranks, self.num_slots
         if tuple(gbuf.shape[:2]) != (n, s):
             raise ValueError(
@@ -307,9 +340,10 @@ class KernelExec:
         if gbuf.device.type != "cuda":
             raise ValueError(f"KernelExec.run: unsupported device "
                              f"{gbuf.device}")
-        return self._launch(gbuf, chunks)
+        return self._launch(gbuf, chunks, _body)
 
-    def _launch(self, gbuf: torch.Tensor, chunks: int) -> torch.Tensor:
+    def _launch(self, gbuf: torch.Tensor, chunks: int,
+                body: str | None) -> torch.Tensor:
         code = cuda.dtype_code(gbuf.dtype)
         if not gbuf.is_contiguous():
             raise ValueError("KernelExec.run: the global buffer must be "
@@ -321,36 +355,66 @@ class KernelExec:
             return out
         tabs = self.tables
         elem = gbuf.element_size()
-        plan = self._plans.get((elem, L // chunks))
+        key = (elem, L // chunks, body)
+        plan = self._plans.get(key)
         if plan is None:
-            plan = self._plans[elem, L // chunks] = pick_tile(
+            plan = self._plans[key] = pick_tile(
                 ns, tabs["stage_rows"], elem, L // chunks,
-                self.ex.schedule.name, len(tabs["tab"]))
-        tile, nbuf = plan
+                self.ex.schedule.name, len(tabs["tab"]), body=body)
+        kind, tile, nbuf = plan
         tab = self.device_table(gbuf.device)
         lib = cuda.library()
+        floor = (tabs["nlive"] + ns) * L * elem
         with torch.cuda.device(gbuf.device):
             stream = torch.cuda.current_stream(gbuf.device).cuda_stream
-            err = lib.repro_schedule_exec(
-                code, gbuf.data_ptr(), out.data_ptr(), tab.data_ptr(),
-                tab.numel(), len(tabs["loads"]), len(tabs["stores"]),
-                tabs["load_classes"], tabs["store_classes"],
-                len(self.ex._rounds), ns, L, chunks, tile, nbuf,
-                tabs["stage_rows"], tabs["nlive"],
-                ctypes.cast(self._info, ctypes.c_void_p), stream)
-        cuda.check(err, f"schedule_exec[{self.ex.schedule.name}]")
+            if kind == "shared":
+                err = lib.repro_schedule_exec(
+                    code, gbuf.data_ptr(), out.data_ptr(), tab.data_ptr(),
+                    tab.numel(), len(tabs["loads"]), len(tabs["stores"]),
+                    tabs["load_classes"], tabs["store_classes"],
+                    len(self.ex._rounds), ns, L, chunks, tile, nbuf,
+                    tabs["stage_rows"], tabs["nlive"],
+                    ctypes.cast(self._info, ctypes.c_void_p), stream)
+            else:
+                # work rows in ``out`` itself when post is the identity
+                work = out if tabs["post_identity"] else torch.empty_like(gbuf)
+                items = -(-(L // chunks) // tile) * chunks
+                grid = min(items, GLOBAL_CTAS_PER_SM * torch.cuda.
+                           get_device_properties(gbuf.device)
+                           .multi_processor_count)
+                stage = torch.empty(grid * tabs["stage_rows"]
+                                    * GLOBAL_ROW_BYTES, dtype=torch.uint8,
+                                    device=gbuf.device)
+                err = lib.repro_schedule_exec_global(
+                    code, gbuf.data_ptr(), out.data_ptr(), work.data_ptr(),
+                    stage.data_ptr(), tab.data_ptr(), tab.numel(),
+                    len(tabs["loads"]), len(tabs["stores"]),
+                    len(self.ex._rounds), ns, L, chunks, grid,
+                    tabs["stage_rows"],
+                    ctypes.cast(self._info, ctypes.c_void_p), stream)
+        cuda.check(err, f"schedule_exec[{self.ex.schedule.name}] ({kind} "
+                        f"body)")
         self.launches += 1
         cuda.LAUNCHES["schedule_exec"] += 1
-        grid, per_sm, aligned = self._info
-        self.last_launch = {
-            "tile": tile, "buffers": nbuf, "grid": grid,
-            "ctas_per_sm": per_sm,
-            "path": "aligned TMA" if aligned else "ragged",
-            "rows_loaded": tabs["nlive"], "rows": ns,
-            "copies": len(tabs["loads"]) + len(tabs["stores"]),
-            "smem_bytes": smem_bytes(ns, tabs["stage_rows"], elem, tile,
-                                     nbuf, len(tabs["tab"])),
-            "floor_bytes": (tabs["nlive"] + ns) * L * elem}
+        cuda.TRANSPORT_BODIES[kind] += 1
+        common = {"body": kind, "tile": tile, "rows_loaded": tabs["nlive"],
+                  "rows": ns, "floor_bytes": floor}
+        if kind == "shared":
+            grid, per_sm, aligned = self._info
+            self.last_launch = {
+                **common, "buffers": nbuf, "grid": grid,
+                "ctas_per_sm": per_sm,
+                "path": "aligned TMA" if aligned else "ragged",
+                "copies": len(tabs["loads"]) + len(tabs["stores"]),
+                "smem_bytes": smem_bytes(ns, tabs["stage_rows"], elem, tile,
+                                         nbuf, len(tabs["tab"]))}
+        else:
+            self.last_launch = {
+                **common, "grid": grid,
+                "path": "16-byte" if self._info[0] else "scalar",
+                "scratch_bytes": (0 if work is out
+                                  else work.numel() * elem)
+                + stage.numel()}
         return out
 
 

@@ -72,13 +72,51 @@ def select(collective: str, topo: Topology, nbytes: int,
     return _model_select(collective, topo, int(nbytes))
 
 
+def resolve_neighbor_mode(graph, topo: Topology, *,
+                          policy: str | None = None, tuned_table=None,
+                          elem_bytes: int = 4) -> str | None:
+    """Cheap half of the neighbor mode choice: resolve from the policy
+    alone, WITHOUT compiling any plan.  Returns None when the decision
+    needs the alpha-beta model comparison of both compiled plans (the
+    caller — ``build_plan`` — already has to build the winner, so it
+    builds both and compares, instead of this layer compiling and
+    discarding them).  The "tuned" policy raises until the tuner is
+    ported."""
+    if policy is None:
+        from repro_torch.core import api  # local: avoid import cycle
+        policy = api.get_default_policy()
+    if policy not in POLICIES:
+        raise ValueError(f"unknown selection policy {policy!r}; "
+                         f"expected one of {POLICIES}")
+    if topo.npods == 1:
+        return "standard"            # both modes compile identically
+    if policy == "fixed":
+        return "locality_aware"
+    if policy == "tuned":
+        raise NotImplementedError(
+            "the 'tuned' neighbor mode needs the empirical tuner, which "
+            "is ported with the tuning slice")
+    return None
+
+
 def select_neighbor(graph, topo: Topology, *, policy: str | None = None,
                     tuned_table=None, elem_bytes: int = 4) -> str:
-    """Standard-vs-locality-aware choice for a neighborhood exchange —
-    needs the neighbor-plan builder, ported with the tuner/plan slice."""
-    raise NotImplementedError(
-        "select_neighbor needs core.plan, which is ported with the "
-        "tuner/plan slice")
+    """Standard-vs-locality-aware choice for a neighborhood exchange.
+
+    Same policy ladder as ``select``: "fixed" is the paper default
+    (aggregate whenever the topology is multi-pod), "model" compares the
+    alpha-beta times of both compiled plans.  ``policy=None`` uses the
+    process-wide default policy.
+    """
+    mode = resolve_neighbor_mode(graph, topo, policy=policy,
+                                 tuned_table=tuned_table,
+                                 elem_bytes=elem_bytes)
+    if mode is not None:
+        return mode
+    from repro_torch.core.plan import model_argmin_plan
+    plan = model_argmin_plan(graph, topo, elem_bytes=elem_bytes)
+    return ("locality_aware" if plan.name.endswith("locality_aware")
+            else "standard")
 
 
 def _executed_time(sched, topo: Topology, nbytes: int) -> float:

@@ -53,6 +53,9 @@
 //     ragged path of the same launch, scalar loads and stores, one item
 //     at a time, the same rounds.
 //
+// A schedule too tall for shared memory (thousands of rows: neighbor and
+// KV-transfer plans) takes the global-memory body below, one launch too.
+//
 // Bitwise contract with SimTransport.run_reference: landings at a
 // repeated target are applied one at a time in (edge, position) order;
 // bfloat16 adds are taken in f32 and rounded back after every add
@@ -465,6 +468,154 @@ int launch(const void* in, void* out, const int* tab, int ntab, int nloads,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- the global-memory body ------------------------------------------
+//
+// For schedules whose rows do not fit one CTA's shared memory (a
+// neighbor or KV-transfer plan of thousands of rows).  It computes what
+// the shared body computes, with the work rows in device memory: a
+// scratch [ns, L] (or `out` itself when the post order is the identity),
+// the stage a [stage_rows, tile] slice of device memory per CTA, and the
+// routing table read in place through the read-only cache.  Rows never
+// mix across columns, so each persistent CTA owns whole column tiles and
+// runs every round for them with only __syncthreads() between rounds
+// (which orders the block's global-memory writes too): no grid-wide
+// barrier, one launch.  U is the unit a thread moves: a 16-byte vector
+// where rows and buffers are 16-byte aligned, else one element; TU units
+// make a tile, 128 bytes of a row.
+
+constexpr int kGlobalThreads = 256;
+
+// Unit<T, U>: the zero and the add of one unit (bf16 adds taken in f32
+// and rounded back after every add, as the shared body does).
+template <typename T, typename U> struct Unit;
+template <> struct Unit<float, float> {
+  __device__ static float zero() { return 0.f; }
+  __device__ static float add(float a, float b) { return a + b; }
+};
+template <> struct Unit<__nv_bfloat16, __nv_bfloat16> {
+  __device__ static __nv_bfloat16 zero() { return __float2bfloat16_rn(0.f); }
+  __device__ static __nv_bfloat16 add(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __float2bfloat16_rn(__bfloat162float(a) + __bfloat162float(b));
+  }
+};
+template <typename T> struct Unit<T, uint4> {
+  __device__ static uint4 zero() { return make_uint4(0, 0, 0, 0); }
+  __device__ static uint4 add(uint4 a, uint4 b) { return Vec<T>::add(a, b); }
+};
+
+template <typename T, typename U, int TU>
+__global__ void __launch_bounds__(kGlobalThreads)
+schedule_exec_global_kernel(const U* __restrict__ in, U* out, U* work,
+                            U* stage_all, const int* __restrict__ tab,
+                            int ntab, int nloads, int nstores, int rounds,
+                            int ns, int64_t L, int64_t chunk_len, int items,
+                            int stage_rows) {
+  using V = Unit<T, U>;
+  const int4* meta = reinterpret_cast<const int4*>(tab) + nloads + nstores;
+  const int2* pairs = reinterpret_cast<const int2*>(meta + rounds);
+  const int* src_row = tab + ntab - 2 * ns;
+  const int* post_row = tab + ntab - ns;
+  U* stage = stage_all + (int64_t)blockIdx.x * stage_rows * TU;
+  const bool drain = work != out;
+  const int tiles = (int)((chunk_len + TU - 1) / TU);
+  const int tid = threadIdx.x;
+  const U zero = V::zero();
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int chunk = it / tiles;
+    const int64_t c = (int64_t)(it - chunk * tiles) * TU;
+    const int64_t col0 = (int64_t)chunk * chunk_len + c;
+    const int width = chunk_len - c < TU ? (int)(chunk_len - c) : TU;
+    // stage-in: the live rows through pre
+    for (int idx = tid; idx < ns * TU; idx += kGlobalThreads) {
+      const int row = idx / TU, v = idx % TU;
+      const int sr = __ldg(src_row + row);
+      if (v < width && sr >= 0)
+        work[(int64_t)row * L + col0 + v] = in[(int64_t)sr * L + col0 + v];
+    }
+    __syncthreads();
+    for (int q = 0; q < rounds; ++q) {
+      const int4 mq = __ldg(meta + q);
+      const int2* pr = pairs + mq.x;
+      const int np = mq.y, flags = mq.z;
+      const bool reduce = flags & kReduce;
+      const bool staged = !(flags & kDirect);
+      if (staged) {                       // hazard: gather into the stage
+        for (int idx = tid; idx < np * TU; idx += kGlobalThreads) {
+          const int p = idx / TU, v = idx % TU;
+          const int sr = __ldg(&pr[p].x);
+          if (v < width)
+            stage[idx] = sr >= 0 ? work[(int64_t)sr * L + col0 + v] : zero;
+        }
+        __syncthreads();
+      }
+      if (!(flags & kOrdered)) {          // distinct targets: all at once
+        for (int idx = tid; idx < np * TU; idx += kGlobalThreads) {
+          const int p = idx / TU, v = idx % TU;
+          if (v >= width) continue;
+          const int2 e = __ldg(pr + p);
+          const U val = staged ? stage[idx]
+              : e.x >= 0 ? work[(int64_t)e.x * L + col0 + v] : zero;
+          U* dst = &work[(int64_t)e.y * L + col0 + v];
+          *dst = reduce ? V::add(*dst, val) : val;
+        }
+      } else {                            // repeated targets: in order
+        for (int v = tid; v < width; v += kGlobalThreads) {
+          for (int p = 0; p < np; ++p) {
+            const int2 e = __ldg(pr + p);
+            const U val = staged ? stage[p * TU + v]
+                : e.x >= 0 ? work[(int64_t)e.x * L + col0 + v] : zero;
+            U* dst = &work[(int64_t)e.y * L + col0 + v];
+            *dst = reduce ? V::add(*dst, val) : val;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (drain) {                          // out = work through post
+      for (int idx = tid; idx < ns * TU; idx += kGlobalThreads) {
+        const int row = idx / TU, v = idx % TU;
+        if (v < width)
+          out[(int64_t)row * L + col0 + v] =
+              work[(int64_t)__ldg(post_row + row) * L + col0 + v];
+      }
+    }
+  }
+}
+
+template <typename T, typename U, int TU>
+int launch_global_as(const void* in, void* out, void* work, void* stage,
+                     const int* tab, int ntab, int nloads, int nstores,
+                     int rounds, int ns, int64_t L, int chunks, int grid,
+                     int stage_rows, cudaStream_t stream) {
+  const int64_t chunk_len = L / chunks;
+  const int64_t items = (chunk_len + TU - 1) / TU * chunks;
+  if (items > INT32_MAX || (int64_t)ns * TU > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  schedule_exec_global_kernel<T, U, TU><<<grid, kGlobalThreads, 0, stream>>>(
+      static_cast<const U*>(in), static_cast<U*>(out), static_cast<U*>(work),
+      static_cast<U*>(stage), tab, ntab, nloads, nstores, rounds, ns, L,
+      chunk_len, (int)items, stage_rows);
+  return (int)cudaGetLastError();
+}
+
+// L, chunk_len in elements of T; `vec` picks 16-byte units.
+template <typename T>
+int launch_global(const void* in, void* out, void* work, void* stage,
+                  const int* tab, int ntab, int nloads, int nstores,
+                  int rounds, int ns, int64_t L, int chunks, int grid,
+                  int stage_rows, int vec, cudaStream_t stream) {
+  constexpr int kPerVec = 16 / (int)sizeof(T);
+  constexpr int kTileElems = 128 / (int)sizeof(T);
+  if (vec)
+    return launch_global_as<T, uint4, 8>(in, out, work, stage, tab, ntab,
+                                         nloads, nstores, rounds, ns,
+                                         L / kPerVec, chunks, grid,
+                                         stage_rows, stream);
+  return launch_global_as<T, T, kTileElems>(in, out, work, stage, tab, ntab,
+                                            nloads, nstores, rounds, ns, L,
+                                            chunks, grid, stage_rows, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  load/store_classes: bit k is set
@@ -486,6 +637,36 @@ extern "C" int repro_schedule_exec(
                                          load_classes, store_classes, rounds,
                                          ns, L, chunks, tile, nbuf,
                                          stage_rows, nlive, info, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The global-memory body.  work is out itself when the post order is the
+// identity, else a scratch [ns, L]; stage holds grid x stage_rows tiles of
+// 128 bytes (16-byte units) or of 128 / sizeof(T) elements.  info (host,
+// optional) receives whether the 16-byte path ran.
+extern "C" int repro_schedule_exec_global(
+    int dtype, const void* in, void* out, void* work, void* stage,
+    const int* tab, int ntab, int nloads, int nstores, int rounds, int ns,
+    int64_t L, int chunks, int grid, int stage_rows, int* info,
+    void* stream) {
+  if (chunks < 1 || L % chunks || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int elem = dtype == 0 ? 4 : 2;
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = (L / chunks * elem) % 16 == 0 && al(in) && al(out)
+      && al(work) && (stage_rows == 0 || al(stage));
+  if (info) info[0] = vec;
+  switch (dtype) {
+    case 0: return launch_global<float>(in, out, work, stage, tab, ntab,
+                                        nloads, nstores, rounds, ns, L,
+                                        chunks, grid, stage_rows, vec, st);
+    case 1: return launch_global<__nv_bfloat16>(
+        in, out, work, stage, tab, ntab, nloads, nstores, rounds, ns, L,
+        chunks, grid, stage_rows, vec, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

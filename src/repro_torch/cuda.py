@@ -38,6 +38,11 @@ LAUNCHES = {"schedule_exec": 0, "rmsnorm": 0, "rmsnorm_reduce": 0,
 # body or a CUDA-core body), since the last reset_launches()
 FLASH_BODIES = {"wgmma": 0, "cuda_cores": 0}
 
+# transport-kernel launches by body: the shared-memory body or the
+# global-memory body of schedules too tall for shared memory, since the
+# last reset_launches()
+TRANSPORT_BODIES = {"shared": 0, "global": 0}
+
 # rmsnorm launches (both entries) by body: rows in registers with 16-byte
 # vectors, or the scalar body, since the last reset_launches()
 RMSNORM_BODIES = {"vector": 0, "scalar": 0}
@@ -53,6 +58,10 @@ _SIGNATURES = {
     # stream
     "repro_schedule_exec": [_i, _vp, _vp, _vp] + [_i] * 7 + [_i64]
                            + [_i] * 5 + [_vp, _vp],
+    # dtype, in, out, work, stage, tab, ntab, loads, stores, rounds, ns,
+    # L, chunks, grid, stage_rows, info, stream
+    "repro_schedule_exec_global": [_i] + [_vp] * 5 + [_i] * 5 + [_i64]
+                                  + [_i] * 3 + [_vp, _vp],
     # dtype, scale dtype, parts, scale, out, P, R, d, eps, gemma, vectors
     # a thread (0: the scalar body), threads, stream
     "repro_rmsnorm_reduce": [_i, _i, _vp, _vp, _vp, _i, _i64, _i, _f, _i,
@@ -85,7 +94,8 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_BODIES, RMSNORM_BODIES):
+    for counts in (LAUNCHES, FLASH_BODIES, RMSNORM_BODIES,
+                   TRANSPORT_BODIES):
         for k in counts:
             counts[k] = 0
 

@@ -11,7 +11,11 @@ Tolerances: the transport kernel is bitwise (f32 and bf16) against
 ``schedule_exec_plain`` and, in f32, against the numpy oracle
 ``run_reference``, on its ragged path (slots [4, 33]: bf16 rows, and
 every row at chunks=2, are no whole 16 B) and its aligned TMA path
-(slots [4, 64], a ring of buffers that wraps, repeated targets); the rmsnorm kernels are within 1e-5 (f32) or one
+(slots [4, 64], a ring of buffers that wraps, repeated targets), and
+its global-memory body (forced on REGISTRY and neighbor schedules, and
+taken by a KV plan too tall for shared memory) bitwise against the
+plain version and the shared body, on its 16-byte and its scalar path
+(tails, rows and buffers off 16 bytes); the rmsnorm kernels are within 1e-5 (f32) or one
 bf16 ulp of their plain versions (the f32 mean is reduced in another
 order); the flash-attention kernels are within the reference's kernel
 tolerances of their plain version, ``3e-5`` in f32 and ``2e-2`` in bf16
@@ -230,6 +234,186 @@ def test_transport_kernel_rejects_what_it_cannot_run(cuda_device):
         kex.run(torch.zeros(8, 8, 4, dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError, match="contiguous"):
         kex.run(torch.zeros(8, 8, 4, 2, device=cuda_device)[..., 0])
+
+
+# ---- the global-memory body ---------------------------------------------
+
+
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a
+    16-byte boundary (a row the 16-byte path cannot take)."""
+    flat = torch.empty(t.numel() * t.element_size() + 4, dtype=torch.uint8,
+                       device=t.device)
+    view = flat[4:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _both_bodies(kex, g, label, chunks=(1, 2)):
+    """The global body bitwise against the plain version and the shared
+    body (where the schedule fits it), at each chunk count."""
+    from repro_torch import cuda as _cuda
+    plain = schedule_exec_plain(kex.ex, g)
+    before = _cuda.TRANSPORT_BODIES["global"]
+    got = kex.run(g, _body="global")
+    torch.cuda.synchronize()
+    assert kex.last_launch["body"] == "global", label
+    assert _cuda.TRANSPORT_BODIES["global"] == before + 1, label
+    assert torch.equal(_bits(got), _bits(plain)), label
+    for c in chunks[1:]:
+        if g.shape[2] % c == 0:
+            assert torch.equal(_bits(kex.run(g, chunks=c, _body="global")),
+                               _bits(got)), (label, c)
+    try:
+        shared = kex.run(g, _body="shared")
+    except ValueError:                  # too tall for shared memory
+        return got
+    assert kex.last_launch["body"] == "shared", label
+    assert torch.equal(_bits(shared), _bits(got)), label
+    return got
+
+
+@pytest.mark.parametrize("slot", [(4, 33), (4, 64), (3, 5)])
+def test_transport_global_body_registry(cuda_device, slot):
+    """Every REGISTRY schedule (hazard rounds, pre and post) forced onto
+    the global body: bitwise against the plain version and the shared
+    body (f32, bf16) and run_reference (f32).  [4, 64] takes the 16-byte
+    path in both dtypes, [4, 33] in f32 (528 B a row, 16-byte units that
+    leave a tile's ragged edge); bf16 [4, 33] and [3, 5] take the scalar
+    path."""
+    rng = np.random.default_rng(5)
+    seen = 0
+    for topo in TOPOS:
+        for label, sched in _registry(topo):
+            buf = _float_buf(rng, (topo.nranks, sched.num_slots) + slot)
+            want = SimTransport(topo.nranks).run_reference(sched, buf)
+            kex = get_kernel_exec(sched, topo=topo)
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.from_numpy(buf).to(cuda_device, dtype)
+                got = _both_bodies(kex, g, label)
+                kex.run(g, _body="global")
+                whole = np.prod(slot) * g.element_size() % 16 == 0
+                assert kex.last_launch["path"] == (
+                    "16-byte" if whole else "scalar"), label
+                if dtype == torch.float32:
+                    assert got.cpu().numpy().tobytes() == want.tobytes(), \
+                        label
+            seen += 1
+    assert seen >= 80
+
+
+def test_transport_global_body_off_16_bytes(cuda_device):
+    """Aligned row lengths in a buffer that starts off 16 bytes: the
+    scalar path, bitwise against the aligned run."""
+    topo = Topology(8, 4)
+    for label, sched in _registry(topo):
+        rng = np.random.default_rng(2)
+        buf = _float_buf(rng, (8, sched.num_slots, 4, 64))
+        kex = get_kernel_exec(sched, topo=topo)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.from_numpy(buf).to(cuda_device, dtype)
+            want = kex.run(g, _body="global")
+            got = kex.run(_off16(g), _body="global")
+            torch.cuda.synchronize()
+            assert kex.last_launch["path"] == "scalar", label
+            assert torch.equal(_bits(got), _bits(want)), label
+
+
+@pytest.mark.parametrize("aggregate", [False, True])
+def test_transport_global_body_neighbor_plans(cuda_device, aggregate):
+    """Neighbor plans (partial permutations, the fused (r, r) self-copy
+    rounds, per-rank recv offsets) on the four topologies, f32 and bf16
+    with negative zeros: both bodies bitwise equal to each other, to the
+    plain version and to SimTransport.run."""
+    from repro_torch.core.plan import CommGraph, build_plan
+    topos = [Topology(8, 8), Topology(8, 4), Topology(16, 4),
+             Topology(12, 3)]
+    for i, topo in enumerate(topos):
+        n = topo.nranks
+        rng = np.random.default_rng(40 + i)
+        graph = CommGraph.random(n, n_local=24, degree=min(n - 1, 6),
+                                 rng=rng, dup_frac=0.7)
+        plan = build_plan(graph, topo, aggregate=aggregate)
+        label = f"{topo.fingerprint()} {plan.name}"
+        for slot in ((2, 64), (3, 7)):
+            buf = _float_buf(rng, (n, plan.buf_rows) + slot)
+            want = SimTransport(n, topo=topo).run(plan.schedule, buf)
+            kex = get_kernel_exec(plan.schedule, topo=topo)
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.from_numpy(buf).to(cuda_device, dtype)
+                got = _both_bodies(kex, g, (label, slot))
+                if dtype == torch.float32:
+                    assert got.cpu().numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("reduce", [True, False])
+@pytest.mark.parametrize("width", [64, 33])
+def test_transport_global_body_repeated_targets(cuda_device, monkeypatch,
+                                                reduce, width):
+    """Ordered rounds on the global body: reduce adds in (edge,
+    position) order and the last set wins."""
+    monkeypatch.setenv("REPRO_VALIDATE_SCHEDULES", "0")
+    gi = np.array([[0, 1], [0, 1]], np.int32)
+    si = np.array([[1, 1], [0, 0]], np.int32)
+    rnd = CommRound(perm=((0, 1), (1, 0)), gather_idx=gi, scatter_idx=si,
+                    reduce=reduce)
+    sched = CommSchedule(nranks=2, num_slots=2, rounds=(rnd,), name="dup")
+    rng = np.random.default_rng(6)
+    buf = (rng.standard_normal((2, 2, width)) * np.array(
+        [[[1e8], [1.0]], [[-1e8], [3.0]]])).astype(np.float32)
+    want = SimTransport(2).run_reference(sched, buf)
+    kex = get_kernel_exec(sched, optimize=False)
+    assert kex.tables["ordered"].all()
+    got = kex.run(torch.from_numpy(buf).to(cuda_device), _body="global")
+    torch.cuda.synchronize()
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+
+
+def test_transport_tall_kv_plan_takes_the_global_body(cuda_device):
+    """A KV transfer plan of 256 blocks a rank (over 1,700 rows): the
+    wrapper picks the global body by itself, one launch, bitwise against
+    the plain version and the gather oracle; a small engine trace on the
+    card verifies every batch."""
+    from repro_torch import cuda as _cuda
+    from repro_torch.core import kvtransfer
+    from repro_torch.serve.engine import ContinuousBatchingEngine, \
+        EngineConfig
+    from repro_torch.serve.traffic import poisson_workload, run_workload
+    topo = Topology(8, 4)
+    rng = np.random.default_rng(0)
+    moves, used = [], set()
+    while len(moves) < 600:
+        s, d = int(rng.integers(4)), 4 + int(rng.integers(4))
+        row, dr = int(rng.integers(256)), int(rng.integers(256))
+        if (d, dr) not in used:
+            used.add((d, dr))
+            moves.append(kvtransfer.BlockMove(s, row, d, dr))
+    moves += [kvtransfer.BlockMove(0, 3, d, 255 - d) for d in range(4, 8)
+              if (d, 255 - d) not in used]
+    for agg in (False, True):
+        tp = kvtransfer.build_transfer_plan(
+            moves, topo, blocks_per_rank=256, aggregate=agg,
+            block_bytes=16 * 256 * 4)
+        assert 8 * tp.schedule.num_slots > 1700
+        pool = torch.randn(8, 256, 16, 256, device=cuda_device)
+        pool.view(-1)[::7] = -0.0
+        n0 = _cuda.LAUNCHES["schedule_exec"]
+        res = kvtransfer.run_transfer(tp, pool, transport="kernel")
+        assert _cuda.LAUNCHES["schedule_exec"] == n0 + 1
+        kex = get_kernel_exec(tp.schedule, topo=topo)
+        assert kex.last_launch["body"] == "global"
+        assert kvtransfer.verify_bitwise(tp, pool, res)
+        g = pool.new_zeros((8, tp.schedule.num_slots, 16, 256))
+        g[:, :256] = pool
+        assert torch.equal(_bits(kex.run(g)),
+                           _bits(schedule_exec_plain(kex.ex, g)))
+    eng = ContinuousBatchingEngine(EngineConfig(
+        blocks_per_rank=256, block_tokens=16, block_feat=64,
+        transport="kernel", device="cuda"))
+    m = run_workload(eng, poisson_workload(
+        0, arrival_rate=6.0, tenants=3, n_requests=12, mean_prompt=512,
+        max_prompt=2048))
+    assert m["completed"] == 12
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

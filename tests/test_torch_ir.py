@@ -159,10 +159,16 @@ def test_selector_matches_reference_per_size_bucket(policy, topo_name):
 
 
 def test_selector_tuned_and_neighbor_raise_until_ported():
+    """"tuned" raises until the tuner is ported, for the dense
+    collectives and for the neighbor mode of a multi-pod topology (the
+    neighbor plans themselves are ported: tests/test_torch_plan.py)."""
+    from repro_torch.core.plan import CommGraph
     with pytest.raises(NotImplementedError, match="tuner"):
         selector.select("allreduce", flat_topology(8), 1024, policy="tuned")
-    with pytest.raises(NotImplementedError, match="plan"):
-        selector.select_neighbor(None, flat_topology(8))
+    graph = CommGraph.random(8, n_local=4, degree=3,
+                             rng=np.random.default_rng(0))
+    with pytest.raises(NotImplementedError, match="tuner"):
+        selector.select_neighbor(graph, Topology(8, 4), policy="tuned")
     with pytest.raises(ValueError, match="policy"):
         selector.select("allreduce", flat_topology(8), 1024, policy="nope")
 
@@ -207,7 +213,10 @@ def test_port_imports_no_jax_no_reference_no_ml_dtypes():
         "mods = [m.name for m in pkgutil.walk_packages("
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 61, mods\n"
+        "assert {'repro_torch.core.plan', 'repro_torch.core.tuner', "
+        "'repro_torch.core.kvtransfer', 'repro_torch.serve.engine', "
+        "'repro_torch.serve.traffic'} <= set(mods), mods\n"
         "bad = [k for k in sys.modules if k in ('jax', 'repro', 'ml_dtypes')"
         " or k.startswith(('jax.', 'repro.', 'ml_dtypes.'))]\n"
         "print('LEAKED', bad)\n")

@@ -188,18 +188,21 @@ def test_kernel_wrapper_rejects_what_it_cannot_run():
         kex.run(torch.zeros(8, sched.num_slots, 2), chunks=0)
     with pytest.raises(ValueError, match="device"):
         kex.run(torch.zeros(8, sched.num_slots, 2, device="meta"))
-    # a tile that cannot fit in one CTA's shared memory names the schedule
+    # a schedule no CTA's shared memory can hold takes the global body;
+    # forcing the shared body on it names the schedule
+    assert pick_tile(4096, 64, 4, 1 << 20, "huge") == ("global", 32, 0)
     with pytest.raises(ValueError, match="huge"):
-        pick_tile(4096, 64, 4, 1 << 20, "huge")
-    # (columns, buffers): the widest tile of rows >= 256 B whose two
+        pick_tile(4096, 64, 4, 1 << 20, "huge", body="shared")
+    # (body, columns, buffers): the widest tile of rows >= 256 B whose two
     # buffers fit a third of an SM, with as many buffers as fit there
-    assert pick_tile(64, 8, 4, 132, "x") == (128, 2)       # ragged edge
-    assert pick_tile(64, 8, 4, 1 << 20, "x") == (128, 2)   # occupancy
-    assert pick_tile(64, 0, 2, 1 << 20, "x") == (256, 2)   # bf16 rows
-    assert pick_tile(64, 0, 2, 20, "x") == (64, 4)    # short rows: 128 B
+    assert pick_tile(64, 8, 4, 132, "x") == ("shared", 128, 2)  # ragged
+    assert pick_tile(64, 8, 4, 1 << 20, "x") == ("shared", 128, 2)
+    assert pick_tile(64, 0, 2, 1 << 20, "x") == ("shared", 256, 2)  # bf16
+    assert pick_tile(64, 0, 2, 20, "x") == ("shared", 64, 4)  # 128 B rows
     # else rows of 256 B in one CTA per SM; else rows of 128 B
-    assert pick_tile(256, 0, 4, 1 << 20, "x") == (64, 3)
-    assert pick_tile(512, 0, 2, 1 << 20, "x") == (64, 3)
+    assert pick_tile(256, 0, 4, 1 << 20, "x") == ("shared", 64, 3)
+    assert pick_tile(512, 0, 2, 1 << 20, "x") == ("shared", 64, 3)
+    assert pick_tile(64, 0, 2, 20, "x", body="global") == ("global", 64, 0)
 
 
 def test_duplicate_reduce_targets_accumulate_in_edge_order(monkeypatch):

@@ -67,8 +67,10 @@ def measure(tree: Path) -> None:
         if hasattr(kex, "tables"):          # the TMA kernel
             t = kex.tables
             tab = kex.device_table(dev)
+            # (tile, buffers), or (body, tile, buffers) since the
+            # global body
             tile, nbuf = kl.pick_tile(ns, t["stage_rows"], elem, L,
-                                      sched.name, len(t["tab"]))
+                                      sched.name, len(t["tab"]))[-2:]
             floor_ms = ((t["nlive"] + ns) * L * elem / cs.HBM_BYTES_PER_S
                         * 1e3)
 
