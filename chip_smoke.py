@@ -16,14 +16,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              against its plain PyTorch version (f32, bf16) and, at the
              two small shapes, against the numpy oracle
              ``run_reference`` (f32); chunks=2 bit-identical; one launch
-             per run.  Then both flash-attention kernels against their
-             plain version on random floats: head_dim 64/128/256, GQA
-             groups 1/2/8, causal, window and softcap alone and
-             together, non-causal, f32 and bf16, head dims padded to
-             128 and 256 (the gather kernel with a random permutation
-             and 1/8 of the rows at -1, which must come out exact
-             zeros), each call's body (Hopper wgmma or CUDA cores)
-             counted and required: wgmma for every aligned bf16 call;
+             per run; every copy-only schedule also forced onto the
+             gather body, bitwise.  Then both flash-attention kernels
+             against their plain version on random floats: head_dim
+             64/128/256, GQA groups 1/2/8, causal, window and softcap
+             alone and together, non-causal, f32 and bf16, head dims
+             padded to 128 and 256 (the gather kernel with a random
+             permutation and 1/8 of the rows at -1, which must come out
+             exact zeros), each call's body (Hopper wgmma or CUDA
+             cores) counted and required: wgmma for every aligned bf16
+             call;
 3. main    — launch counters reset, then the collective path once at
              sizes users run: Topology -> selector -> builder ->
              executor -> ``KernelTransport.run_global`` for a 25 MiB-
@@ -39,23 +41,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              and (12,3), both plan modes, f32 and bf16 with negative
              zeros, slots [2, 64] and [3, 7]: ``KernelTransport.run_global``
              bitwise equal to ``SimTransport.run`` (on the raw bits: the
-             plans only copy) and to the plain version; both bodies of
-             the transport kernel forced on each plan and equal; one KV
-             plan over 1,700 rows on the global body;
+             plans only copy) and to the plain version; every body of the
+             transport kernel that can hold each plan (shared where it
+             fits, global, gather) forced on it and equal; one KV plan
+             over 1,700 rows on the gather body;
 3k. kv     — the continuous-batching engine at a real size: 8 ranks in
              two pods of 4, 1024 blocks a rank of 16 tokens x 2048
              floats (gemma2-2b's K and V of one layer, f32: a 1.07 GB
              pool on the card), the Poisson trace of 40 requests (seed
              0, rate 6.0, 3 tenants, mean prompt 2048) on the kernel
              transport: counters reset, the trace run, counters read (one
-             launch per batch; the global body on every batch too tall
+             launch per batch; the gather body on every batch too tall
              for shared memory; every batch verified bitwise by the
              engine); the transfer log, metrics and final pool equal to
              the same engine on the numpy transport; each batch replayed
              (host ms from cold caches, kernel ms beside its bound and
-             the ``g.clone()`` copy floor); the largest batch timed
-             against its plain version and ``index_select`` of its row
-             map (the global body's row of the kernels line);
+             the ``g.clone()`` copy floor); the largest batch's composed
+             row map held against ``SimTransport`` on row ids, the batch
+             timed against its plain version, ``index_select`` of its
+             row map and ``g.clone()``, and the round-by-round global
+             body forced on it (the gather and global bodies' rows of
+             the kernels line);
 3c. launcher — ``python -m repro_torch.launch.serve --arch gemma2-2b
              --continuous --kv-transport kernel`` in a subprocess: exit 0,
              every request served;
@@ -194,7 +200,7 @@ def main() -> int:
     wkv_err = wkv6_parity(torch, dev)
     cases = main_path(torch, dev)
     kvrun = kv_path(torch, dev)
-    global_row = global_body_timing(torch, kvrun)
+    gather_row, global_row = gather_body_timing(torch, kvrun)
     del kvrun
     torch.cuda.empty_cache()
     launcher_continuous(torch)
@@ -208,8 +214,9 @@ def main() -> int:
     # device records (see device_ms)
     early = early_device_ms(torch, rwkv_served, jamba_served)
     kernels = timing(torch, cases)
-    next(k for k in kernels
-         if k["name"] == "schedule_exec")["global_body"] = global_row
+    transport = next(k for k in kernels if k["name"] == "schedule_exec")
+    transport["gather_body"] = gather_row
+    transport["global_body"] = global_row
     kernels += attention_timing(torch, served, gathered, attn_err)
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["cases"].append(jamba_attention_timing(torch, jamba_served,
@@ -292,6 +299,14 @@ def parity(torch, dev) -> None:
                                              got.view(itype)),
                                  f"{label} {dtype}: chunks=2 not "
                                  f"bit-identical")
+                        if kex.tables["copy_only"]:
+                            forced = kex.run(g, _body="gather")
+                            torch.cuda.synchronize()
+                            paths.add(f"gather {kex.last_launch['path']}")
+                            _require(torch.equal(forced.view(itype),
+                                                 got.view(itype)),
+                                     f"{label} {dtype}: the gather body "
+                                     f"differs")
                         if want is not None and dtype == torch.float32:
                             _require(got.cpu().numpy().tobytes()
                                      == want.tobytes(),
@@ -562,6 +577,7 @@ def time_long_ms(torch, fn, *args) -> tuple[float, str]:
 TRACE_TRIES = 3
 KERNEL_SYMBOLS = {"schedule_exec": "schedule_exec_kernel",
                   "schedule_exec_global": "schedule_exec_global_kernel",
+                  "schedule_exec_gather": "schedule_exec_gather_kernel",
                   # either body: rmsnorm_vec_kernel (16-byte vectors, rows
                   # in registers) or rmsnorm_rows_kernel (scalar)
                   "rmsnorm_reduce": "rmsnorm_",
@@ -675,10 +691,15 @@ def timing(torch, cases) -> list[dict]:
                                              gbuf)
             extra["floor_ms"] = (c["launch"]["floor_bytes"]
                                  / HBM_BYTES_PER_S * 1e3)
-            # the same schedule on the global-memory body, forced
+            # the same schedule on the global-memory body, and where it
+            # has no reduce round on the gather body, forced
             kex = get_kernel_exec(c["sched"], topo=c["topo"])
             extra["global_body_ms"] = time_ms(
                 torch, lambda g: kex.run(g, _body="global"), gbuf)
+            if kex.tables["copy_only"]:
+                extra["gather_body_ms"] = time_ms(
+                    torch, lambda g: kex.run(g, _body="gather"), gbuf)
+                extra["gather_body_launch"] = dict(kex.last_launch)
             extra["rounds"] = ex.rounds_after
             extra["launch"] = c["launch"]
         else:
@@ -776,8 +797,10 @@ def neighbor_parity(torch, dev) -> None:
     """(n) Random neighbor graphs on four topologies, both plan modes,
     f32 and bf16 with negative zeros: ``KernelTransport.run_global``
     bitwise equal to ``SimTransport.run`` (on the raw bits) and to
-    ``schedule_exec_plain``; on each plan both bodies forced and equal;
-    then one plan too tall for shared memory on the global body."""
+    ``schedule_exec_plain``; on each plan every body that can hold it
+    forced and equal (shared where it fits, global, and gather: the
+    plans have no reduce round); then one plan too tall for shared
+    memory on the gather body."""
     from repro_torch import cuda
     from repro_torch.core import kvtransfer
     from repro_torch.core.kernel_lowering import (get_kernel_exec,
@@ -790,11 +813,12 @@ def neighbor_parity(torch, dev) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     checked, paths = 0, set()
-    both = {True: 0, False: 0}       # runs with both bodies / global only
+    both = {True: 0, False: 0}       # runs with the shared body / without
 
     def check(plan, topo, slot, label):
         """Default pick, then each body forced (the shared one where the
-        plan fits it): all bitwise equal to the oracle."""
+        plan fits it, the gather one where it is copy-only): all bitwise
+        equal to the oracle."""
         nonlocal checked
         n = topo.nranks
         kex = get_kernel_exec(plan.schedule, topo=topo)
@@ -813,15 +837,15 @@ def neighbor_parity(torch, dev) -> None:
             plain = schedule_exec_plain(kex.ex, g)
             _require(torch.equal(_ints(got), _ints(plain)),
                      f"{label} {dtype}: kernel != plain version")
-            bodies = ("shared", "global") if body == "shared" else \
-                ("global",)
+            bodies = (("shared",) if body == "shared" else ()) + ("global",) \
+                + (("gather",) if kex.tables["copy_only"] else ())
             for b in bodies:
                 forced = kex.run(g, _body=b)
                 torch.cuda.synchronize()
                 paths.add((b, kex.last_launch["path"]))
                 _require(_np_bits(forced).tobytes() == want.tobytes(),
                          f"{label} {dtype}: the {b} body differs")
-            both[len(bodies) == 2] += 1
+            both["shared" in bodies] += 1
             checked += 1
         return kex
 
@@ -853,35 +877,36 @@ def neighbor_parity(torch, dev) -> None:
     tp = kvtransfer.build_transfer_plan(moves, topo, blocks_per_rank=256,
                                         aggregate=True, block_bytes=4096)
     _require(8 * tp.schedule.num_slots > TALL_ROWS, "the tall plan is short")
-    before = cuda.TRANSPORT_BODIES["global"]
+    before = cuda.TRANSPORT_BODIES["gather"]
     kex = check(tp.plan, topo, (4, 256), f"tall {tp.plan.name} "
                 f"{8 * tp.schedule.num_slots} rows")
-    _require(kex.last_launch["body"] == "global"
-             and cuda.TRANSPORT_BODIES["global"] >= before + 4,
-             "the tall plan did not take the global body")
+    _require(kex.last_launch["body"] == "gather"
+             and cuda.TRANSPORT_BODIES["gather"] >= before + 4,
+             "the tall plan did not take the gather body")
     _require(both[True] >= len(NEIGHBOR_TOPOS) * 2 * 2 * 2,
              "neighbor: a small plan did not fit the shared body")
     print(f"neighbor: {checked} plan x dtype runs bitwise (kernel = "
-          f"SimTransport.run = plain version; {both[True]} with both "
-          f"bodies forced and equal, {both[False]} too tall for the shared "
-          f"one; bodies and paths {sorted(paths)}), the tall plan of "
-          f"{8 * tp.schedule.num_slots} rows on the global body, "
+          f"SimTransport.run = plain version; every body that holds each "
+          f"plan forced and equal: {both[True]} with the shared, global and "
+          f"gather bodies, {both[False]} too tall for the shared one; bodies "
+          f"and paths {sorted(paths)}), the tall plan of "
+          f"{8 * tp.schedule.num_slots} rows on the gather body, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def _row_map(sched, n: int) -> np.ndarray:
     """A copy-only schedule as one row gather: the input row each output
-    row holds (the schedule run on row ids)."""
+    row holds, -1 where it takes +0 (the schedule run on row ids + 1)."""
     from repro_torch.core.transport import SimTransport
-    ids = np.arange(n * sched.num_slots, dtype=np.int64).reshape(
+    ids = np.arange(1, n * sched.num_slots + 1, dtype=np.int64).reshape(
         n, sched.num_slots, 1)
-    return SimTransport(n).run(sched, ids).reshape(-1)
+    return SimTransport(n).run(sched, ids).reshape(-1) - 1
 
 
 def kv_path(torch, dev) -> dict:
     """(k) The continuous-batching engine at a real size on the transport
     kernel: counters reset, the trace run, counters read (one launch per
-    batch, the global body on every batch too tall for shared memory,
+    batch, the gather body on every batch too tall for shared memory,
     every batch verified bitwise by the engine); the transfer log and
     the final pool held against the same engine on the numpy ``sim``
     transport; then each batch replayed: host ms (plan, executor and
@@ -930,10 +955,12 @@ def kv_path(torch, dev) -> dict:
         t = get_kernel_exec(tp.schedule, topo=eng.topo).tables
         ns = eng.topo.nranks * tp.schedule.num_slots
         tall += pick_tile(ns, t["stage_rows"], elem, L, "kv",
-                          len(t["tab"]))[0] == "global"
-    _require(bodies["global"] == tall and tall > 0,
-             f"kv path: {bodies['global']} global-body launches for "
-             f"{tall} batches too tall for shared memory")
+                          len(t["tab"]),
+                          copy_only=t["copy_only"])[0] == "gather"
+    _require(bodies["gather"] == tall and tall > 0 and not bodies["global"],
+             f"kv path: {bodies['gather']} gather-body launches for "
+             f"{tall} batches too tall for shared memory (global body "
+             f"{bodies['global']})")
     kv_final = eng.kv.cpu().numpy()
     topo = eng.topo
     log = [{k: v for k, v in x.items() if k != "seconds"}
@@ -974,7 +1001,16 @@ def kv_path(torch, dev) -> dict:
             blocks_per_rank=KV_CONFIG["blocks_per_rank"],
             block_bytes=elem * L)
         kex = get_kernel_exec(tp.schedule, topo=topo)
+        if kex.plan(elem, L)[0] == "gather":     # built on first use
+            kernel_lowering.gather_tables(kex.ex)
         host_ms = (time.perf_counter() - h0) * 1e3
+        # the part of it the gather body's table takes: the composed map
+        # and its grouping by source, again
+        t = kex.tables
+        h0 = time.perf_counter()
+        kernel_lowering._gather_table(kernel_lowering._compose(
+            t["src_row"], t["load"], t["rounds"], t["post_row"]))
+        table_ms = (time.perf_counter() - h0) * 1e3
         g = pool.new_zeros((topo.nranks, tp.schedule.num_slots)
                            + tuple(pool.shape[2:]))
         g[:, : KV_CONFIG["blocks_per_rank"]] = pool
@@ -987,14 +1023,16 @@ def kv_path(torch, dev) -> dict:
                "plan": x["plan"], "rounds": kex.rounds,
                "body": run["body"], "path": run["path"], "ms": ms,
                "bound_ms": bound, "clone_ms": clone_ms, "host_ms": host_ms,
+               "gather_table_ms": table_ms,
                "engine_transfer_ms": seconds[i] * 1e3}
         rows.append(row)
         print(f"kv batch {i:2d} (step {x['step']}): {run['rows']} rows "
               f"({run['rows_loaded']} loaded), {x['blocks']} moves, "
               f"{x['plan']} {kex.rounds} rounds, {run['body']} body "
               f"({run['path']}): {ms:.4f} ms (bound {bound:.4f} ms, "
-              f"g.clone() {clone_ms:.4f} ms), host {host_ms:.2f} ms, "
-              f"engine transfer {seconds[i] * 1e3:.2f} ms", flush=True)
+              f"g.clone() {clone_ms:.4f} ms), host {host_ms:.2f} ms (gather "
+              f"table {table_ms:.2f} ms), engine transfer "
+              f"{seconds[i] * 1e3:.2f} ms", flush=True)
         del g
     big = max(range(len(rows)), key=lambda i: rows[i]["rows"])
     x = log[big]
@@ -1008,57 +1046,92 @@ def kv_path(torch, dev) -> dict:
     del pool
     print(f"kv path: phase {time.perf_counter() - t0:.2f} s", flush=True)
     return {"metrics": m, "launches": launches["schedule_exec"],
-            "global_launches": bodies["global"], "batches": rows,
+            "gather_launches": bodies["gather"], "batches": rows,
             "largest": {"sched": tp.schedule, "topo": tp.topo, "gbuf": g,
                         "batch": big}}
 
 
-def global_body_timing(torch, kvrun) -> dict:
-    """The global body at the largest KV batch: kernel ms and device ms,
-    its plain version, the bound, the copy floor and the one-call
-    library equivalent (``index_select`` of the schedule's row map)."""
-    from repro_torch.core.kernel_lowering import (get_kernel_exec,
-                                                  schedule_exec_plain)
+def gather_body_timing(torch, kvrun) -> tuple[dict, dict]:
+    """The gather body at the largest KV batch: kernel ms and device ms,
+    its plain version, the bound, the copy floor and the one-call library
+    equivalent (``index_select`` of the schedule's row map, which must
+    equal the composed map the body walks); and the round-by-round
+    global body forced on the same batch (kernel and device ms).
+    Returns (the gather body's row, the global body's row)."""
+    from repro_torch.core.kernel_lowering import (gather_tables,
+                                                  get_kernel_exec,
+                                                  schedule_exec_gather_plain)
     big = kvrun["largest"]
     g, sched, topo = big["gbuf"], big["sched"], big["topo"]
     kex = get_kernel_exec(sched, topo=topo)
     out = kex.run(g)
     torch.cuda.synchronize()
     run = dict(kex.last_launch)
-    _require(run["body"] == "global", "the largest KV batch: not global")
-    plain = schedule_exec_plain(kex.ex, g)
+    _require(run["body"] == "gather" and run["path"] == "bulk"
+             and not run["zero_rows"],
+             f"the largest KV batch: {run['body']} body, {run['path']} path, "
+             f"{run['zero_rows']} zero rows")
+    plain = schedule_exec_gather_plain(kex.ex, g)
     _require(torch.equal(_ints(out), _ints(plain)),
              "the largest KV batch: kernel != plain version")
     del plain
-    rmap = torch.from_numpy(_row_map(sched, topo.nranks)).to(g.device)
+    rmap_np = _row_map(sched, topo.nranks)
+    _require(np.array_equal(gather_tables(kex.ex)["src_of"], rmap_np),
+             "the largest KV batch: the composed map != SimTransport's")
+    rmap = torch.from_numpy(rmap_np).to(g.device)
     flat = g.view(-1, g[0, 0].numel())
     _require(torch.equal(_ints(flat.index_select(0, rmap)),
                          _ints(out.view(flat.shape))),
              "the largest KV batch: index_select of the row map differs")
+    glob = kex.run(g, _body="global")
+    torch.cuda.synchronize()
+    glob_run = dict(kex.last_launch)
+    _require(torch.equal(_ints(glob), _ints(out)),
+             "the largest KV batch: the global body differs")
+    del glob, out
+
+    def global_body(a):
+        return kex.run(a, _body="global")
+
     ms = time_ms(torch, kex.run, g, reps=5, batches=5)
-    dev_ms = device_ms(torch, "schedule_exec_global", kex.run, g, reps=5)
-    plain_ms = time_ms(torch, lambda a: schedule_exec_plain(kex.ex, a), g,
-                       reps=1, batches=3)
+    glob_ms = time_ms(torch, global_body, g, reps=5, batches=5)
+    dev_ms = device_ms(torch, "schedule_exec_gather", kex.run, g, reps=5)
+    glob_dev = device_ms(torch, "schedule_exec_global", global_body, g,
+                         reps=5)
+    plain_ms = time_ms(torch, lambda a: schedule_exec_gather_plain(kex.ex, a),
+                       g, reps=1, batches=3)
     lib_ms = time_ms(torch, lambda a: a.view(flat.shape).index_select(
         0, rmap), g, reps=5, batches=5)
     clone_ms = time_ms(torch, lambda a: a.clone(), g, reps=5, batches=5)
     bound = run["floor_bytes"] / HBM_BYTES_PER_S * 1e3
-    row = {"case": f"KV batch {big['batch']}: {run['rows']} rows of "
-                   f"[16, 2048] f32, {len(kex.ex._rounds)} rounds",
-           "launches": kvrun["global_launches"], "ms": ms,
+    case = (f"KV batch {big['batch']}: {run['rows']} rows of [16, 2048] f32, "
+            f"{len(kex.ex._rounds)} rounds")
+    library = ("flat.index_select(0, row_map) (the schedule composed into "
+               "one row gather)")
+    row = {"case": case, "launches": kvrun["gather_launches"], "ms": ms,
            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
-           "bound_by": "bytes", "library_ms": lib_ms,
-           "library_call": "flat.index_select(0, row_map) (the schedule "
-                           "composed into one row gather)",
+           "bound_by": "bytes", "library_ms": lib_ms, "library_call": library,
            "copy_floor_ms": clone_ms, "max_abs_err": 0.0, "launch": run,
-           "batches": kvrun["batches"]}
-    print(f"{'schedule_exec':>15} | global body, {row['case']}: {ms:.4f} ms "
+           "global_body_ms": glob_ms, "batches": kvrun["batches"]}
+    glob_bound = glob_run["floor_bytes"] / HBM_BYTES_PER_S * 1e3
+    glob_row = {"case": case + " (forced)", "launches": 0, "ms": glob_ms,
+                "device_ms": glob_dev, "plain_ms": plain_ms,
+                "bound_ms": glob_bound, "bound_by": "bytes",
+                "library_ms": lib_ms, "library_call": library,
+                "copy_floor_ms": clone_ms, "max_abs_err": 0.0,
+                "launch": glob_run}
+    print(f"{'schedule_exec':>15} | gather body, {case}: {ms:.4f} ms "
           f"[device {dev_ms if dev_ms is None else round(dev_ms, 4)}] "
           f"(bound {bound:.4f} ms by bytes, {run['floor_bytes'] / ms / 1e6:.1f}"
-          f" GB/s), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-          f"[index_select], g.clone() {clone_ms:.4f} ms; launches on the KV "
-          f"path {kvrun['global_launches']}", flush=True)
-    return row
+          f" GB/s, {run['rows_loaded']} rows read + {run['rows']} written; "
+          f"grid {run['grid']}, {run['ctas_per_sm']} CTAs/SM, "
+          f"{run['buffers']} x {run['tile']} B), plain {plain_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms [index_select], g.clone() "
+          f"{clone_ms:.4f} ms; global body forced {glob_ms:.4f} ms [device "
+          f"{glob_dev if glob_dev is None else round(glob_dev, 4)}] (bound "
+          f"{glob_bound:.4f} ms); launches on the KV path "
+          f"{kvrun['gather_launches']}", flush=True)
+    return row, glob_row
 
 
 def launcher_continuous(torch) -> None:

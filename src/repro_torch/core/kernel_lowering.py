@@ -20,17 +20,25 @@ Rows never mix, so the kernel's persistent CTAs walk column tiles of
 the flattened slot payload across all ``nranks * num_slots`` rows and
 run every round for a tile in shared memory (the shared body).  A
 schedule whose rows do not fit one CTA's shared memory (a neighbor or
-KV-transfer plan of thousands of rows) takes the global body of the same
-source: the work rows in device memory, the same rounds, still one
-launch (``pick_tile`` chooses; ``last_launch["body"]`` says which ran,
-``cuda.TRANSPORT_BODIES`` counts them).  ``chunks > 1`` splits the
+KV-transfer plan of thousands of rows) takes another body of the same
+source, still one launch: a plan with no reduce round (copy-only) the
+gather body, which copies each output row from the input row the whole
+schedule composes it to (``_compose``: pre, every round and post folded
+into one map on the host, grouped by source as ``gather_tab``, both
+built by ``gather_tables`` the first time the body is chosen), reading
+each distinct input row once; a plan with a reduce round the global
+body, the work rows in device memory and the same rounds.
+``pick_tile`` chooses; ``last_launch["body"]`` says which ran,
+``cuda.TRANSPORT_BODIES`` counts them.  ``chunks > 1`` splits the
 slot row axis into column ranges of the same launch (bit-identical;
 still one launch), the row decomposition ``Transport.run_chunked``
-relies on.
+relies on; the gather body copies whole rows, which gives the same
+bytes.
 
-On a CPU tensor the wrapper runs ``schedule_exec_plain``, the kernel's
-plain PyTorch version with the same order of operations; on a CUDA
-tensor it launches the kernel or raises.
+On a CPU tensor the wrapper runs the plain PyTorch version of the body
+``pick_tile`` chooses: ``schedule_exec_gather_plain`` for the gather
+body, else ``schedule_exec_plain``, with the kernel's order of
+operations; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -57,6 +65,12 @@ MAX_BOX_ROWS = 256         # a TMA box spans at most 256 rows
 REDUCE, DIRECT, ORDERED = 1, 2, 4   # round flags in the kernel's meta
 GLOBAL_ROW_BYTES = 128     # the global body's tile: 128 B of each row
 GLOBAL_CTAS_PER_SM = 8     # the global body's persistent grid (256 threads)
+# the gather body's segment bytes and ring buffers, fixed in the kernel
+# (kGatherSeg, kGatherBufs in csrc/schedule_exec.cu, which reports them
+# at each launch); pick_tile names them for the gather body
+GATHER_SEG_BYTES = 32768
+GATHER_BUFS = 4
+NOT_LOADED = -2            # _compose: a row the kernel never loads
 
 
 def _round_pairs(rnd, s: int) -> tuple[np.ndarray, np.ndarray]:
@@ -91,6 +105,44 @@ def _boxes(source: np.ndarray) -> list[tuple[int, int, int]]:
     return ops
 
 
+def _compose(src_row: np.ndarray, load: np.ndarray, rounds: list,
+             post_row: np.ndarray) -> np.ndarray:
+    """A copy-only schedule as one map: the input row each output row
+    holds, or -1 where a masked gather lands +0.  It keeps the kernel's
+    semantics: a round's landings read the pre-round state, the last
+    landing at a repeated target wins, a row no landing touches keeps
+    its ``pre`` row, and a row the kernel never loads is never read
+    (asserted: the sentinel reaches no output row)."""
+    cur = np.where(load, src_row, NOT_LOADED)
+    for src, dst, flags in rounds:
+        val = np.where(src >= 0, cur[np.maximum(src, 0)], -1)
+        if flags & ORDERED:
+            # the last landing at each target, in (edge, position) order
+            last = len(dst) - 1 - np.unique(dst[::-1], return_index=True)[1]
+            dst, val = dst[last], val[last]
+        cur[dst] = val
+    src_of = cur[post_row]
+    assert (src_of != NOT_LOADED).all(), "an output row reads an unloaded row"
+    return src_of
+
+
+def _gather_table(src_of: np.ndarray) -> tuple[np.ndarray, int, int]:
+    """``src_of`` grouped by source, as the gather body walks it: the
+    distinct input rows ascending, the CSR offsets of their output rows,
+    the output rows grouped by source (ascending within a source), then
+    the rows that take +0.  Returns (int32 table, sources, zero rows)."""
+    src_of = src_of.astype(np.int32)
+    order = np.argsort(src_of, kind="stable").astype(np.int32)
+    by_src = src_of[order]                       # the -1 rows first
+    nzero = int(np.searchsorted(by_src, 0))
+    by_src, dst = by_src[nzero:], order[nzero:]
+    edge = np.ones(len(dst) + 1, bool)           # where a source starts
+    np.not_equal(by_src[1:], by_src[:-1], out=edge[1:-1])
+    offsets = np.flatnonzero(edge).astype(np.int32)
+    tab = np.concatenate([by_src[offsets[:-1]], offsets, dst, order[:nzero]])
+    return tab, len(offsets) - 1, nzero
+
+
 def _pack_tables(ex: CompiledExec) -> dict:
     """The executor's compiled rounds as the kernel's int32 table ``tab``
     (layout in ``csrc/schedule_exec.cu``) and what the host needs
@@ -108,7 +160,9 @@ def _pack_tables(ex: CompiledExec) -> dict:
         (``_boxes``), with the box heights each uses (``*_classes``,
         bit k for 2^k rows);
       * ``stage_rows``: the largest hazard round's landing count, the
-        stage the kernel sizes (0 when every round is direct).
+        stage the kernel sizes (0 when every round is direct);
+      * ``copy_only``: no round reduces (the gather body's own tables
+        are ``gather_tables``).
     """
     n, s = ex.nranks, ex.num_slots
     ns = n * s
@@ -153,9 +207,10 @@ def _pack_tables(ex: CompiledExec) -> dict:
         np.asarray(meta, np.int64).reshape(-1),
         (np.concatenate(pairs) if pairs else np.zeros((0, 2), np.int64))
         .reshape(-1), live_src, post_row]).astype(np.int32)
-    return {"tab": tab, "src_row": src_row, "post_row": post_row,
-            "load": load, "nlive": int(load.sum()),
-            "loads": loads, "stores": stores,
+    return {"tab": tab,
+            "copy_only": not any(rnd.reduce for rnd in ex._rounds),
+            "src_row": src_row, "post_row": post_row, "load": load,
+            "nlive": int(load.sum()), "loads": loads, "stores": stores,
             "load_classes": sum({1 << k for _, _, k in loads}),
             "store_classes": sum({1 << k for _, _, k in stores}),
             "direct": np.asarray(direct, bool),
@@ -173,6 +228,24 @@ def tables(ex: CompiledExec) -> dict:
     tabs = _TABLES.get(ex)
     if tabs is None:
         tabs = _TABLES[ex] = _pack_tables(ex)
+    return tabs
+
+
+def gather_tables(ex: CompiledExec) -> dict:
+    """``tables(ex)`` with the gather body's tables added on first use
+    (a copy-only schedule only): ``src_of [n*s]`` (``_compose``), the
+    kernel's ``gather_tab`` (``_gather_table``), ``gather_rows``
+    distinct input rows read and ``zero_rows`` rows that take +0."""
+    tabs = tables(ex)
+    if not tabs["copy_only"]:
+        raise ValueError(f"schedule {ex.schedule.name!r} has a reduce "
+                         f"round: the gather body runs copy-only schedules")
+    if "gather_tab" not in tabs:
+        src_of = _compose(tabs["src_row"], tabs["load"], tabs["rounds"],
+                          tabs["post_row"])
+        gtab, nsrc, nzero = _gather_table(src_of)
+        tabs.update(src_of=src_of, gather_tab=gtab, gather_rows=nsrc,
+                    zero_rows=nzero)
     return tabs
 
 
@@ -209,10 +282,19 @@ def _shared_tile(ns: int, stage_rows: int, elem: int, chunk_len: int,
     return None
 
 
+def floor_rows(ex: CompiledExec, body: str) -> int:
+    """The rows a body's design floor moves: every output row written
+    once, and every input row it needs read once (the rows that reach
+    the output; for the gather body the distinct rows of ``src_of``)."""
+    tabs = gather_tables(ex) if body == "gather" else tables(ex)
+    read = tabs["gather_rows"] if body == "gather" else tabs["nlive"]
+    return read + len(tabs["post_row"])
+
+
 def pick_tile(ns: int, stage_rows: int, elem: int, chunk_len: int,
-              name: str, ntab: int = 0, *,
-              body: str | None = None) -> tuple[str, int, int]:
-    """(body, columns per item, buffers per CTA).
+              name: str, ntab: int = 0, *, body: str | None = None,
+              copy_only: bool = False) -> tuple[str, int, int]:
+    """(body, columns per item or segment bytes, buffers per CTA).
 
     The shared body holds every row of a column tile in shared memory.
     Rows of at least ``WIDE_ROW_BYTES`` (or the widest the row allows)
@@ -221,13 +303,20 @@ def pick_tile(ns: int, stage_rows: int, elem: int, chunk_len: int,
     buffers (up to four) as that target holds; else the narrowest such
     tile with as many buffers as one CTA may hold; else the narrowest
     tile (rows of 128 B) with as many as fit.  A schedule of which not
-    even one such buffer fits takes the global body: rows of
+    even one such buffer fits takes the gather body when it is
+    ``copy_only`` (segments of ``GATHER_SEG_BYTES`` of a row, a ring of
+    ``GATHER_BUFS``), else the global body: rows of
     ``GLOBAL_ROW_BYTES`` a tile, no buffers.  ``body`` forces one (tests
     and the card smoke only); forcing the shared body on a schedule it
-    cannot hold raises ``ValueError``."""
-    if body not in (None, "shared", "global"):
-        raise ValueError(f"unknown body {body!r}; expected shared | global")
-    shared = (None if body == "global"
+    cannot hold, or the gather body on one with a reduce round, raises
+    ``ValueError``."""
+    if body not in (None, "shared", "global", "gather"):
+        raise ValueError(f"unknown body {body!r}; expected shared | global "
+                         f"| gather")
+    if body == "gather" and not copy_only:
+        raise ValueError(f"schedule {name!r} has a reduce round: the gather "
+                         f"body runs copy-only schedules")
+    shared = (None if body in ("global", "gather")
               else _shared_tile(ns, stage_rows, elem, chunk_len, ntab))
     if shared is not None:
         return ("shared",) + shared
@@ -236,6 +325,8 @@ def pick_tile(ns: int, stage_rows: int, elem: int, chunk_len: int,
             f"schedule {name!r}: {ns} slots + {stage_rows} staged payloads "
             f"x {MIN_ROW_BYTES // elem} columns x {elem} B exceed the "
             f"{SMEM_MAX} B of shared memory one CTA may use")
+    if copy_only and body != "global":
+        return "gather", GATHER_SEG_BYTES, GATHER_BUFS
     return "global", GLOBAL_ROW_BYTES // elem, 0
 
 
@@ -284,6 +375,26 @@ def schedule_exec_plain(ex: CompiledExec, gbuf: torch.Tensor) -> torch.Tensor:
     return out.reshape(gbuf.shape)
 
 
+def schedule_exec_gather_plain(ex: CompiledExec,
+                               gbuf: torch.Tensor) -> torch.Tensor:
+    """The gather body's plain PyTorch version: read from the packed
+    ``gather_tab``, each output row is a copy of its source row (every
+    output row of a source from one read of it), the rows listed apart
+    take +0.  Any device, any dtype; the schedule must be copy-only."""
+    tabs = gather_tables(ex)
+    n, s = ex.nranks, ex.num_slots
+    ns, nsrc = n * s, tabs["gather_rows"]
+    gtab = torch.from_numpy(tabs["gather_tab"].astype(np.int64)).to(
+        gbuf.device)
+    srcs, offsets = gtab[:nsrc], gtab[nsrc:2 * nsrc + 1]
+    dst = gtab[2 * nsrc + 1:2 * nsrc + 1 + ns - tabs["zero_rows"]]
+    flat = gbuf.reshape(ns, -1)
+    out = torch.zeros_like(flat)
+    rows = flat[srcs]
+    out[dst] = rows.repeat_interleave(offsets.diff(), dim=0)
+    return out.reshape(gbuf.shape)
+
+
 class KernelExec:
     """One ``CompiledExec`` lowered to the single-launch CUDA kernel.
 
@@ -304,24 +415,41 @@ class KernelExec:
         self.tables = tables(ex)
         self._dev: dict = {}
         self._plans: dict = {}       # (elem, chunk_len, forced) -> pick_tile
-        self._info = (ctypes.c_int * 3)()
-        # what the last launch ran: its body, tile, grid and path, rows
-        # loaded and the design floor in bytes; the shared body's
-        # buffers and CTAs per SM, the global body's scratch bytes
+        self._info = (ctypes.c_int * 5)()
+        # what the last launch ran: its body, tile (the gather body's
+        # segment bytes), grid and path, rows read and the design floor
+        # in bytes; the shared and gather bodies' buffers and CTAs per
+        # SM, the global body's scratch bytes
         self.last_launch: dict | None = None
 
-    def device_table(self, device: torch.device) -> torch.Tensor:
-        """The packed int32 table on ``device`` (uploaded once)."""
-        tab = self._dev.get(device)
+    def device_table(self, device: torch.device,
+                     name: str = "tab") -> torch.Tensor:
+        """The packed int32 table ``name`` (``tab``, or ``gather_tab``
+        for the gather body) on ``device`` (uploaded once)."""
+        tab = self._dev.get((device, name))
         if tab is None:
-            tab = self._dev[device] = torch.from_numpy(
-                self.tables["tab"]).to(device)
+            tab = self._dev[device, name] = torch.from_numpy(
+                self.tables[name]).to(device)
         return tab
+
+    def plan(self, elem: int, chunk_len: int,
+             body: str | None = None) -> tuple[str, int, int]:
+        """``pick_tile`` for this schedule (cached per element size,
+        chunk length and forced body)."""
+        key = (elem, chunk_len, body)
+        plan = self._plans.get(key)
+        if plan is None:
+            tabs = self.tables
+            plan = self._plans[key] = pick_tile(
+                self.nranks * self.num_slots, tabs["stage_rows"], elem,
+                chunk_len, self.ex.schedule.name, len(tabs["tab"]),
+                body=body, copy_only=tabs["copy_only"])
+        return plan
 
     def run(self, gbuf: torch.Tensor, *, chunks: int = 1,
             _body: str | None = None) -> torch.Tensor:
-        """``_body`` forces the shared or the global body (tests and the
-        card smoke only)."""
+        """``_body`` forces the shared, the global or the gather body
+        (tests and the card smoke only)."""
         n, s = self.nranks, self.num_slots
         if tuple(gbuf.shape[:2]) != (n, s):
             raise ValueError(
@@ -335,15 +463,19 @@ class KernelExec:
             raise ValueError(
                 f"KernelExec.run: slot row axis {slot[:1]} must divide "
                 f"by chunks={chunks}")
-        if gbuf.device.type == "cpu":
-            return schedule_exec_plain(self.ex, gbuf)
-        if gbuf.device.type != "cuda":
+        if gbuf.device.type not in ("cpu", "cuda"):
             raise ValueError(f"KernelExec.run: unsupported device "
                              f"{gbuf.device}")
-        return self._launch(gbuf, chunks, _body)
+        plan = self.plan(gbuf.element_size(),
+                         int(math.prod(slot)) // chunks, _body)
+        if gbuf.device.type == "cpu":
+            if plan[0] == "gather":
+                return schedule_exec_gather_plain(self.ex, gbuf)
+            return schedule_exec_plain(self.ex, gbuf)
+        return self._launch(gbuf, chunks, plan)
 
     def _launch(self, gbuf: torch.Tensor, chunks: int,
-                body: str | None) -> torch.Tensor:
+                plan: tuple[str, int, int]) -> torch.Tensor:
         code = cuda.dtype_code(gbuf.dtype)
         if not gbuf.is_contiguous():
             raise ValueError("KernelExec.run: the global buffer must be "
@@ -353,18 +485,13 @@ class KernelExec:
         out = torch.empty_like(gbuf)
         if L == 0:
             return out
-        tabs = self.tables
         elem = gbuf.element_size()
-        key = (elem, L // chunks, body)
-        plan = self._plans.get(key)
-        if plan is None:
-            plan = self._plans[key] = pick_tile(
-                ns, tabs["stage_rows"], elem, L // chunks,
-                self.ex.schedule.name, len(tabs["tab"]), body=body)
         kind, tile, nbuf = plan
-        tab = self.device_table(gbuf.device)
+        tabs = gather_tables(self.ex) if kind == "gather" else self.tables
+        tab = self.device_table(gbuf.device,
+                                "gather_tab" if kind == "gather" else "tab")
         lib = cuda.library()
-        floor = (tabs["nlive"] + ns) * L * elem
+        info = ctypes.cast(self._info, ctypes.c_void_p)
         with torch.cuda.device(gbuf.device):
             stream = torch.cuda.current_stream(gbuf.device).cuda_stream
             if kind == "shared":
@@ -373,8 +500,12 @@ class KernelExec:
                     tab.numel(), len(tabs["loads"]), len(tabs["stores"]),
                     tabs["load_classes"], tabs["store_classes"],
                     len(self.ex._rounds), ns, L, chunks, tile, nbuf,
-                    tabs["stage_rows"], tabs["nlive"],
-                    ctypes.cast(self._info, ctypes.c_void_p), stream)
+                    tabs["stage_rows"], tabs["nlive"], info, stream)
+            elif kind == "gather":
+                err = lib.repro_schedule_exec_gather(
+                    gbuf.data_ptr(), out.data_ptr(), tab.data_ptr(),
+                    tabs["gather_rows"], tabs["zero_rows"], ns, L * elem,
+                    info, stream)
             else:
                 # work rows in ``out`` itself when post is the identity
                 work = out if tabs["post_identity"] else torch.empty_like(gbuf)
@@ -390,17 +521,17 @@ class KernelExec:
                     stage.data_ptr(), tab.data_ptr(), tab.numel(),
                     len(tabs["loads"]), len(tabs["stores"]),
                     len(self.ex._rounds), ns, L, chunks, grid,
-                    tabs["stage_rows"],
-                    ctypes.cast(self._info, ctypes.c_void_p), stream)
+                    tabs["stage_rows"], info, stream)
         cuda.check(err, f"schedule_exec[{self.ex.schedule.name}] ({kind} "
                         f"body)")
         self.launches += 1
         cuda.LAUNCHES["schedule_exec"] += 1
         cuda.TRANSPORT_BODIES[kind] += 1
-        common = {"body": kind, "tile": tile, "rows_loaded": tabs["nlive"],
-                  "rows": ns, "floor_bytes": floor}
+        moved = floor_rows(self.ex, kind)
+        common = {"body": kind, "tile": tile, "rows_loaded": moved - ns,
+                  "rows": ns, "floor_bytes": moved * L * elem}
         if kind == "shared":
-            grid, per_sm, aligned = self._info
+            grid, per_sm, aligned = self._info[:3]
             self.last_launch = {
                 **common, "buffers": nbuf, "grid": grid,
                 "ctas_per_sm": per_sm,
@@ -408,6 +539,12 @@ class KernelExec:
                 "copies": len(tabs["loads"]) + len(tabs["stores"]),
                 "smem_bytes": smem_bytes(ns, tabs["stage_rows"], elem, tile,
                                          nbuf, len(tabs["tab"]))}
+        elif kind == "gather":
+            grid, per_sm, bulk, seg, bufs = self._info
+            self.last_launch = {
+                **common, "tile": seg, "buffers": bufs, "grid": grid,
+                "ctas_per_sm": per_sm, "path": "bulk" if bulk else "ragged",
+                "zero_rows": tabs["zero_rows"], "chunks": chunks}
         else:
             self.last_launch = {
                 **common, "grid": grid,

@@ -163,7 +163,7 @@ def gather_oracle(moves: Sequence[BlockMove], pool: torch.Tensor
     return out
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class TransferResult:
     """One executed transfer batch: per-dst updates + telemetry.
 

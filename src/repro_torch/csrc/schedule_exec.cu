@@ -54,7 +54,10 @@
 //     at a time, the same rounds.
 //
 // A schedule too tall for shared memory (thousands of rows: neighbor and
-// KV-transfer plans) takes the global-memory body below, one launch too.
+// KV-transfer plans) takes one of the two bodies below, one launch too:
+// the gather body when no round reduces (it copies each output row from
+// the input row the whole schedule composes it to), else the
+// global-memory body (the same rounds, the work rows in device memory).
 //
 // Bitwise contract with SimTransport.run_reference: landings at a
 // repeated target are applied one at a time in (edge, position) order;
@@ -616,6 +619,293 @@ int launch_global(const void* in, void* out, void* work, void* stage,
                                             chunks, grid, stage_rows, stream);
 }
 
+
+// ---- the gather body --------------------------------------------------
+//
+// Replaces, with the two bodies above: src/repro/core/pallas_lowering.py,
+// PallasExec._kernel, for a schedule too tall for shared memory that has
+// no reduce round (every neighbor and KV-transfer plan).
+//
+// What it computes: out[d] = in[src_of[d]] byte for byte, or all-zero
+// bytes where src_of[d] = -1.  The host (core/kernel_lowering.py,
+// _compose) folds pre, every round and post of a copy-only schedule into
+// src_of and hands it over grouped by source (_gather_table), one int32
+// table:
+//   srcs    [nsrc]        the distinct input rows, ascending
+//   offsets [nsrc + 1]    CSR offsets into dsts
+//   dsts    [ns - nzero]  the output rows of each source
+//   zeros   [nzero]       the output rows that take +0
+// It moves bytes, so f32 and bf16 are one path and -0.0 passes through.
+//
+// Bound: bytes.  Every distinct input row read once and every output row
+// written once, (nsrc + ns) x row bytes: no stage, no scratch, no rounds,
+// `out` written once.  The round-by-round global body moved as many
+// bytes as a copy, but as 128-byte column strips of every row at a row's
+// stride from the next, its phases serial within a CTA.
+//
+// Design (sm_90a):
+//   * Items: a segment of kGatherSeg bytes of one source row or, where
+//     rows are shorter, a run of consecutive sources whose rows fit one
+//     segment, in ascending source order.  A persistent grid of one CTA
+//     per SM; blocks of kGatherBlock consecutive items are dealt to the
+//     CTAs in turn, so the grid's reads sweep device memory together.
+//     On the H100 this setting ran the KV batches fastest of those tried
+//     in bring-up (segment bytes, ring depth, CTAs per SM, how the items
+//     are dealt), at about a copy's rate; one contiguous range of items
+//     a CTA was markedly slower.
+//   * One elected thread runs a ring of kGatherBufs segment buffers in
+//     shared memory, an mbarrier each: a 1-D bulk load (cp.async.bulk, no
+//     tensor map) brings an item in, completion counted in bytes; once it
+//     has arrived, one bulk store per destination row of each source
+//     leaves from the buffer (one bulk group per item); a buffer is
+//     refilled, one item behind, once the stores of its item have read it
+//     (wait_group.read 1), so the loads of later items stay in flight
+//     while earlier stores drain.  Rows that take +0 are stored from one
+//     zeroed buffer.
+//   * Rows whose byte length is no multiple of 16, or buffers off 16
+//     bytes, cannot go through a bulk copy: they take the ragged path of
+//     the same launch, every thread copying 4- or 2-byte units (the widest
+//     the rows and buffers allow; f32 and bf16 rows are whole 2-byte
+//     units), each source unit read once and written to every destination
+//     row.
+
+constexpr int kGatherThreads = 128;
+constexpr int kGatherSeg = 32768;         // bytes of a segment
+constexpr int kGatherBufs = 4;            // the ring's buffers
+constexpr int kGatherCtasPerSm = 1;       // the bulk path's grid
+constexpr int kGatherRaggedCtasPerSm = 8;
+constexpr int kGatherBlock = 2;           // items a CTA takes in a row
+constexpr int kGatherBarBytes = 128;      // the ring's mbarriers, padded
+// the ring and the zeroed buffer
+constexpr size_t kGatherSmem =
+    kGatherBarBytes + (size_t)(kGatherBufs + 1) * kGatherSeg;
+static_assert(kGatherSmem <= (size_t)kSmemMax, "the ring exceeds a CTA");
+static_assert(kGatherBufs * 8 <= kGatherBarBytes, "the mbarriers");
+
+// How the rows split into items.
+struct GatherItems {
+  int64_t row_bytes;
+  int per_item;       // rows an item holds (1 where a row spans segments)
+  int segs;           // segments a row (1 where an item holds many rows)
+  int64_t src_items;  // items over the sources; the zero rows' follow
+  int64_t items;
+};
+
+// One item: rows [k0, k1) of srcs (or of zeros), the segment's byte
+// offset in a row and its length.
+struct GatherItem {
+  int k0, k1;
+  int64_t off;
+  uint32_t len;
+  bool zero;
+};
+
+__device__ __forceinline__ GatherItem gather_item(const GatherItems& g,
+                                                  int64_t it, int nsrc,
+                                                  int nzero) {
+  GatherItem r;
+  r.zero = it >= g.src_items;
+  if (r.zero) it -= g.src_items;
+  const int64_t grp = it / g.segs;
+  r.k0 = (int)(grp * g.per_item);
+  r.k1 = min(r.k0 + g.per_item, r.zero ? nzero : nsrc);
+  r.off = (it - grp * g.segs) * kGatherSeg;
+  const int64_t rest = g.row_bytes - r.off;
+  r.len = (uint32_t)(rest < kGatherSeg ? rest : kGatherSeg);
+  return r;
+}
+
+// A 1-D bulk copy of `bytes` from device memory into shared memory,
+// completion counted in bytes on the mbarrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` from shared memory out to device memory (in
+// the current bulk group).
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(src),
+                  "r"(bytes)
+               : "memory");
+}
+
+// Wait until every bulk group but the newest has read its shared memory.
+__device__ __forceinline__ void bulk_wait_read_but_one() {
+  asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+}
+
+// U: the ragged path's unit (uint32_t or uint16_t); the bulk path moves
+// bytes and ignores it.
+template <typename U>
+__global__ void __launch_bounds__(kGatherThreads)
+schedule_exec_gather_kernel(const unsigned char* __restrict__ in,
+                            unsigned char* __restrict__ out,
+                            const int* __restrict__ gtab, int nsrc, int nzero,
+                            int ns, const GatherItems g, int bulk) {
+  const int* srcs = gtab;
+  const int* offs = gtab + nsrc;
+  const int* dsts = offs + nsrc + 1;
+  const int* zeros = dsts + (ns - nzero);
+  const int tid = threadIdx.x;
+  // this CTA's items: item_of(j) for j < count, the source items first
+  const int64_t G = gridDim.x, B = blockIdx.x, K = kGatherBlock;
+  auto item_of = [&](int64_t j) { return ((j / K) * G + B) * K + j % K; };
+  auto below = [&](int64_t limit) {     // this CTA's items under `limit`
+    const int64_t nb = limit / K, rem = limit - nb * K;
+    int64_t c = nb > B ? (nb - B + G - 1) / G * K : 0;
+    if (rem && nb % G == B) c += rem;
+    return c;
+  };
+  const int64_t count = below(g.items);
+  const int64_t n = below(g.src_items);
+  if (count == 0) return;
+
+  if (!bulk) {
+    // ragged path: every thread, one unit at a time
+    const int64_t row_units = g.row_bytes / (int64_t)sizeof(U);
+    const U* uin = reinterpret_cast<const U*>(in);
+    U* uout = reinterpret_cast<U*>(out);
+    for (int64_t j = 0; j < count; ++j) {
+      const GatherItem r = gather_item(g, item_of(j), nsrc, nzero);
+      const int upr = (int)(r.len / sizeof(U));
+      const int64_t col0 = r.off / (int64_t)sizeof(U);
+      const int total = (r.k1 - r.k0) * upr;
+      for (int idx = tid; idx < total; idx += kGatherThreads) {
+        const int kk = idx / upr;
+        const int k = r.k0 + kk;
+        const int64_t col = col0 + (idx - kk * upr);
+        if (r.zero) {
+          uout[(int64_t)__ldg(zeros + k) * row_units + col] = U{};
+          continue;
+        }
+        const U v = uin[(int64_t)__ldg(srcs + k) * row_units + col];
+        const int e1 = __ldg(offs + k + 1);
+        for (int e = __ldg(offs + k); e < e1; ++e)
+          uout[(int64_t)__ldg(dsts + e) * row_units + col] = v;
+      }
+    }
+    return;
+  }
+
+  extern __shared__ __align__(128) unsigned char gsmem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(gsmem);
+  unsigned char* bufs = gsmem + kGatherBarBytes;
+  unsigned char* zbuf = bufs + (size_t)kGatherBufs * kGatherSeg;
+  if (nzero) {
+    uint4* z = reinterpret_cast<uint4*>(zbuf);
+    for (int i = tid; i < kGatherSeg / 16; i += kGatherThreads)
+      z[i] = make_uint4(0, 0, 0, 0);
+    fence_async_smem();
+  }
+  if (tid == 0) {
+    for (int b = 0; b < kGatherBufs; ++b) mbar_init(smem_addr(&bars[b]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid != 0) return;
+
+  // zero rows: stores from the zeroed buffer
+  const uint32_t zaddr = smem_addr(zbuf);
+  for (int64_t j = n; j < count; ++j) {
+    const GatherItem r = gather_item(g, item_of(j), nsrc, nzero);
+    for (int k = r.k0; k < r.k1; ++k)
+      bulk_store(out + (int64_t)__ldg(zeros + k) * g.row_bytes + r.off, zaddr,
+                 r.len);
+  }
+  bulk_commit();
+
+  // source items j = 0 .. n-1, buffer j % kGatherBufs
+  auto load = [&](int64_t j) {
+    const int b = (int)(j % kGatherBufs);
+    const GatherItem r = gather_item(g, item_of(j), nsrc, nzero);
+    const uint32_t bar = smem_addr(&bars[b]);
+    const uint32_t dst = smem_addr(bufs + (size_t)b * kGatherSeg);
+    mbar_arrive_tx(bar, (uint32_t)(r.k1 - r.k0) * r.len);
+    for (int k = r.k0; k < r.k1; ++k)
+      bulk_load(dst + (uint32_t)(k - r.k0) * r.len,
+                in + (int64_t)__ldg(srcs + k) * g.row_bytes + r.off, r.len,
+                bar);
+  };
+  for (int64_t j = 0; j < n && j < kGatherBufs; ++j) load(j);
+  for (int64_t j = 0; j < n; ++j) {
+    const int b = (int)(j % kGatherBufs);
+    mbar_wait(smem_addr(&bars[b]), (uint32_t)((j / kGatherBufs) & 1));
+    const GatherItem r = gather_item(g, item_of(j), nsrc, nzero);
+    const uint32_t src = smem_addr(bufs + (size_t)b * kGatherSeg);
+    for (int k = r.k0; k < r.k1; ++k) {
+      const int e1 = __ldg(offs + k + 1);
+      for (int e = __ldg(offs + k); e < e1; ++e)
+        bulk_store(out + (int64_t)__ldg(dsts + e) * g.row_bytes + r.off,
+                   src + (uint32_t)(k - r.k0) * r.len, r.len);
+    }
+    bulk_commit();
+    // refill the previous item's buffer once its stores have read it
+    if (j >= 1 && j - 1 + kGatherBufs < n) {
+      bulk_wait_read_but_one();
+      load(j - 1 + kGatherBufs);
+    }
+  }
+  bulk_wait_all();
+}
+
+template <typename U>
+int launch_gather_as(const void* in, void* out, const int* gtab, int nsrc,
+                     int nzero, int ns, const GatherItems& g, int bulk,
+                     size_t smem, int* info, cudaStream_t stream) {
+  auto kern = schedule_exec_gather_kernel<U>;
+  // opt in to kSmemMax of dynamic shared memory once per device, and
+  // cache the occupancy of the last footprint
+  static bool opted[64] = {};
+  static size_t occ_smem[64] = {};
+  static int occ[64] = {}, sms[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemMax);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+    occ_smem[dev] = ~(size_t)0;
+    opted[dev] = true;
+  }
+  if (occ_smem[dev] != smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[dev], kern,
+                                                        kGatherThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (occ[dev] < 1) return (int)cudaErrorInvalidConfiguration;
+    occ_smem[dev] = smem;
+  }
+  const int cap = bulk ? kGatherCtasPerSm : kGatherRaggedCtasPerSm;
+  const int per_sm = occ[dev] < cap ? occ[dev] : cap;
+  const int64_t slots = (int64_t)sms[dev] * per_sm;
+  const int grid = (int)(g.items < slots ? g.items : slots);
+  if (info) {
+    info[0] = grid;
+    info[1] = per_sm;
+    info[2] = bulk;
+    info[3] = kGatherSeg;
+    info[4] = kGatherBufs;
+  }
+  if (grid < 1) return 0;
+  kern<<<grid, kGatherThreads, smem, stream>>>(
+      static_cast<const unsigned char*>(in), static_cast<unsigned char*>(out),
+      gtab, nsrc, nzero, ns, g, bulk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  load/store_classes: bit k is set
@@ -669,4 +959,44 @@ extern "C" int repro_schedule_exec_global(
         chunks, grid, stage_rows, vec, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The gather body of a copy-only schedule.  gtab is the table above
+// (srcs, offsets, dsts, zeros); row_bytes the bytes of one row (the
+// slot's payload, a whole number of 2-byte units).  info (host, optional)
+// receives the grid, the CTAs per SM, whether the bulk path ran, the
+// segment bytes and the ring's buffers.
+extern "C" int repro_schedule_exec_gather(
+    const void* in, void* out, const int* gtab, int nsrc, int nzero, int ns,
+    int64_t row_bytes, int* info, void* stream) {
+  if (row_bytes < 1 || nsrc < 0 || nzero < 0 || nzero > ns)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto al = [&](int a) {
+    return row_bytes % a == 0 && reinterpret_cast<uintptr_t>(in) % a == 0
+        && reinterpret_cast<uintptr_t>(out) % a == 0;
+  };
+  GatherItems g;
+  g.row_bytes = row_bytes;
+  if (row_bytes >= kGatherSeg) {
+    g.per_item = 1;
+    g.segs = (int)((row_bytes + kGatherSeg - 1) / kGatherSeg);
+  } else {
+    g.per_item = (int)(kGatherSeg / row_bytes);
+    g.segs = 1;
+  }
+  g.src_items = (int64_t)((nsrc + g.per_item - 1) / g.per_item) * g.segs;
+  g.items = g.src_items
+      + (int64_t)((nzero + g.per_item - 1) / g.per_item) * g.segs;
+  if (al(16))
+    return launch_gather_as<uint32_t>(
+        in, out, gtab, nsrc, nzero, ns, g, 1,
+        nzero ? kGatherSmem : kGatherSmem - kGatherSeg, info, st);
+  if (al(4))
+    return launch_gather_as<uint32_t>(in, out, gtab, nsrc, nzero, ns, g, 0,
+                                      0, info, st);
+  if (al(2))
+    return launch_gather_as<uint16_t>(in, out, gtab, nsrc, nzero, ns, g, 0,
+                                      0, info, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -38,10 +38,10 @@ LAUNCHES = {"schedule_exec": 0, "rmsnorm": 0, "rmsnorm_reduce": 0,
 # body or a CUDA-core body), since the last reset_launches()
 FLASH_BODIES = {"wgmma": 0, "cuda_cores": 0}
 
-# transport-kernel launches by body: the shared-memory body or the
-# global-memory body of schedules too tall for shared memory, since the
-# last reset_launches()
-TRANSPORT_BODIES = {"shared": 0, "global": 0}
+# transport-kernel launches by body: the shared-memory body, or for
+# schedules too tall for shared memory the gather body (copy-only) or the
+# global-memory body, since the last reset_launches()
+TRANSPORT_BODIES = {"shared": 0, "global": 0, "gather": 0}
 
 # rmsnorm launches (both entries) by body: rows in registers with 16-byte
 # vectors, or the scalar body, since the last reset_launches()
@@ -62,6 +62,10 @@ _SIGNATURES = {
     # L, chunks, grid, stage_rows, info, stream
     "repro_schedule_exec_global": [_i] + [_vp] * 5 + [_i] * 5 + [_i64]
                                   + [_i] * 3 + [_vp, _vp],
+    # in, out, gather table, sources, zero rows, ns, row bytes, info,
+    # stream
+    "repro_schedule_exec_gather": [_vp] * 3 + [_i] * 3 + [_i64]
+                                  + [_vp, _vp],
     # dtype, scale dtype, parts, scale, out, P, R, d, eps, gemma, vectors
     # a thread (0: the scalar body), threads, stream
     "repro_rmsnorm_reduce": [_i, _i, _vp, _vp, _vp, _i, _i64, _i, _f, _i,

@@ -12,10 +12,14 @@ Tolerances: the transport kernel is bitwise (f32 and bf16) against
 ``run_reference``, on its ragged path (slots [4, 33]: bf16 rows, and
 every row at chunks=2, are no whole 16 B) and its aligned TMA path
 (slots [4, 64], a ring of buffers that wraps, repeated targets), and
-its global-memory body (forced on REGISTRY and neighbor schedules, and
-taken by a KV plan too tall for shared memory) bitwise against the
-plain version and the shared body, on its 16-byte and its scalar path
-(tails, rows and buffers off 16 bytes); the rmsnorm kernels are within 1e-5 (f32) or one
+its global-memory body (forced on REGISTRY and neighbor schedules)
+bitwise against the plain version and the shared body, on its 16-byte
+and its scalar path (tails, rows and buffers off 16 bytes), and its
+gather body (forced on every copy-only REGISTRY schedule, neighbor and
+KV plans, hand-made plans with +0 landings and repeated targets, and
+taken by a KV plan too tall for shared memory) bitwise against its
+plain version, ``schedule_exec_plain`` and the global body, on its bulk
+and its ragged path, at chunks 1, 2 and 4; the rmsnorm kernels are within 1e-5 (f32) or one
 bf16 ulp of their plain versions (the f32 mean is reduced in another
 order); the flash-attention kernels are within the reference's kernel
 tolerances of their plain version, ``3e-5`` in f32 and ``2e-2`` in bf16
@@ -41,6 +45,7 @@ from repro_torch import cuda
 from repro_torch.core import executor, kernel_lowering
 from repro_torch.core.algorithms import REGISTRY
 from repro_torch.core.kernel_lowering import (get_kernel_exec,
+                                              schedule_exec_gather_plain,
                                               schedule_exec_plain)
 from repro_torch.core.schedule import CommRound, CommSchedule, NotApplicable
 from repro_torch.core.topology import Topology, flat_topology, torus_topology
@@ -369,11 +374,11 @@ def test_transport_global_body_repeated_targets(cuda_device, monkeypatch,
     assert got.cpu().numpy().tobytes() == want.tobytes()
 
 
-def test_transport_tall_kv_plan_takes_the_global_body(cuda_device):
-    """A KV transfer plan of 256 blocks a rank (over 1,700 rows): the
-    wrapper picks the global body by itself, one launch, bitwise against
-    the plain version and the gather oracle; a small engine trace on the
-    card verifies every batch."""
+def test_transport_tall_kv_plan_takes_the_gather_body(cuda_device):
+    """A KV transfer plan of 256 blocks a rank (over 1,700 rows, no
+    reduce round): the wrapper picks the gather body by itself, one
+    launch, bitwise against the plain version and the gather oracle; a
+    small engine trace on the card verifies every batch."""
     from repro_torch import cuda as _cuda
     from repro_torch.core import kvtransfer
     from repro_torch.serve.engine import ContinuousBatchingEngine, \
@@ -401,7 +406,7 @@ def test_transport_tall_kv_plan_takes_the_global_body(cuda_device):
         res = kvtransfer.run_transfer(tp, pool, transport="kernel")
         assert _cuda.LAUNCHES["schedule_exec"] == n0 + 1
         kex = get_kernel_exec(tp.schedule, topo=topo)
-        assert kex.last_launch["body"] == "global"
+        assert kex.last_launch["body"] == "gather"
         assert kvtransfer.verify_bitwise(tp, pool, res)
         g = pool.new_zeros((8, tp.schedule.num_slots, 16, 256))
         g[:, :256] = pool
@@ -414,6 +419,198 @@ def test_transport_tall_kv_plan_takes_the_global_body(cuda_device):
         0, arrival_rate=6.0, tenants=3, n_requests=12, mean_prompt=512,
         max_prompt=2048))
     assert m["completed"] == 12
+
+
+# ---- the gather body -----------------------------------------------------
+
+
+def _gather_body(kex, g, label, chunks=(1, 2, 4)):
+    """The gather body forced at each chunk count the slot allows: one
+    launch a run and the ``gather`` counter up by one, the segment and
+    ring the kernel reports those ``pick_tile`` names, bitwise equal to
+    its plain version, to ``schedule_exec_plain`` and to the global
+    body."""
+    plain = schedule_exec_gather_plain(kex.ex, g)
+    assert torch.equal(_bits(plain), _bits(schedule_exec_plain(kex.ex, g))), \
+        label
+    glob = kex.run(g, _body="global")
+    got = None
+    for c in chunks:
+        if g.shape[2] % c:
+            continue
+        before, n0 = cuda.TRANSPORT_BODIES["gather"], kex.launches
+        got = kex.run(g, chunks=c, _body="gather")
+        torch.cuda.synchronize()
+        assert kex.last_launch["body"] == "gather", label
+        assert (kex.last_launch["tile"], kex.last_launch["buffers"]) == (
+            kernel_lowering.GATHER_SEG_BYTES, kernel_lowering.GATHER_BUFS)
+        assert cuda.TRANSPORT_BODIES["gather"] == before + 1, label
+        assert kex.launches == n0 + 1, label
+        assert torch.equal(_bits(got), _bits(plain)), (label, c)
+        assert torch.equal(_bits(got), _bits(glob)), (label, c)
+    return got
+
+
+def _bulk(g) -> bool:
+    return (g[0, 0].numel() * g.element_size() % 16 == 0
+            and g.data_ptr() % 16 == 0)
+
+
+@pytest.mark.parametrize("slot", [(4, 64), (4, 33), (3, 5)])
+def test_transport_gather_body_registry(cuda_device, slot):
+    """Every copy-only REGISTRY schedule forced onto the gather body, f32
+    and bf16 with negative zeros: bitwise against its plain version,
+    ``schedule_exec_plain``, the global body and (f32) run_reference.
+    [4, 64] takes the bulk path in both dtypes, [4, 33] in f32 (528 B a
+    row); bf16 [4, 33] and [3, 5] the ragged path."""
+    rng = np.random.default_rng(8)
+    seen = 0
+    for topo in TOPOS:
+        for label, sched in _registry(topo):
+            kex = get_kernel_exec(sched, topo=topo)
+            if not kex.tables["copy_only"]:
+                continue
+            buf = _float_buf(rng, (topo.nranks, sched.num_slots) + slot)
+            want = SimTransport(topo.nranks).run_reference(sched, buf)
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.from_numpy(buf).to(cuda_device, dtype)
+                got = _gather_body(kex, g, label)
+                assert kex.last_launch["path"] == (
+                    "bulk" if _bulk(g) else "ragged"), label
+                if dtype == torch.float32:
+                    assert got.cpu().numpy().tobytes() == want.tobytes(), \
+                        label
+            seen += 1
+    assert seen >= 50
+
+
+@pytest.mark.parametrize("aggregate", [False, True])
+def test_transport_gather_body_neighbor_plans(cuda_device, aggregate):
+    """Neighbor plans on the four topologies at slots [2, 64] (bulk) and
+    [3, 7] (ragged), f32 and bf16 with negative zeros: the gather body
+    bitwise against its plain version, the global body and
+    SimTransport.run."""
+    from repro_torch.core.plan import CommGraph, build_plan
+    topos = [Topology(8, 8), Topology(8, 4), Topology(16, 4),
+             Topology(12, 3)]
+    for i, topo in enumerate(topos):
+        n = topo.nranks
+        rng = np.random.default_rng(60 + i)
+        graph = CommGraph.random(n, n_local=24, degree=min(n - 1, 6),
+                                 rng=rng, dup_frac=0.7)
+        plan = build_plan(graph, topo, aggregate=aggregate)
+        kex = get_kernel_exec(plan.schedule, topo=topo)
+        assert kex.tables["copy_only"]
+        for slot in ((2, 64), (3, 7)):
+            buf = _float_buf(rng, (n, plan.buf_rows) + slot)
+            want = SimTransport(n, topo=topo).run(plan.schedule, buf)
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.from_numpy(buf).to(cuda_device, dtype)
+                got = _gather_body(kex, g, (topo.fingerprint(), slot))
+                assert kex.last_launch["path"] == (
+                    "bulk" if slot == (2, 64) else "ragged")
+                if dtype == torch.float32:
+                    assert got.cpu().numpy().tobytes() == want.tobytes()
+
+
+def _kv_moves(rng, blocks, count):
+    from repro_torch.core import kvtransfer
+    moves, used = [], set()
+    while len(moves) < count:
+        s, d = int(rng.integers(4)), 4 + int(rng.integers(4))
+        row, dr = int(rng.integers(blocks)), int(rng.integers(blocks))
+        if (d, dr) not in used:
+            used.add((d, dr))
+            moves.append(kvtransfer.BlockMove(s, row, d, dr))
+    return moves
+
+
+@pytest.mark.parametrize("block,dtype", [((16, 64), torch.float32),
+                                         ((16, 256), torch.bfloat16),
+                                         ((16, 2048), torch.float32)])
+def test_transport_gather_body_kv_plan_1024_blocks(cuda_device, block,
+                                                   dtype):
+    """A KV plan at 1024 blocks a rank (thousands of rows, several
+    rounds): the wrapper takes the gather body by itself, and forced at
+    chunks 1/2/4 it is bitwise against its plain version, the global
+    body and the gather oracle.  Blocks of 4 KiB and 8 KiB (several rows
+    an item) and 128 KiB (a row over several segments)."""
+    from repro_torch.core import kvtransfer
+    topo = Topology(8, 4)
+    moves = _kv_moves(np.random.default_rng(11), 1024, 2400)
+    moves += [kvtransfer.BlockMove(0, 5, d, 1023 - d) for d in range(4, 8)
+              if all((m.dst, m.dst_row) != (d, 1023 - d) for m in moves)]
+    elem = torch.tensor([], dtype=dtype).element_size()
+    tp = kvtransfer.build_transfer_plan(
+        moves, topo, blocks_per_rank=1024,
+        block_bytes=int(np.prod(block)) * elem)
+    kex = get_kernel_exec(tp.schedule, topo=topo)
+    pool = torch.randn((8, 1024) + block, device=cuda_device).to(dtype)
+    pool.view(-1)[::7] = -0.0
+    g = pool.new_zeros((8, tp.schedule.num_slots) + block)
+    g[:, :1024] = pool
+    n0 = cuda.TRANSPORT_BODIES["gather"]
+    auto = kex.run(g)
+    torch.cuda.synchronize()
+    assert cuda.TRANSPORT_BODIES["gather"] == n0 + 1
+    assert kex.last_launch["path"] == "bulk"
+    got = _gather_body(kex, g, tp.schedule.name)
+    assert torch.equal(_bits(auto), _bits(got))
+    res = kvtransfer.run_transfer(tp, pool, transport="kernel")
+    assert kvtransfer.verify_bitwise(tp, pool, res)
+
+
+def test_transport_gather_body_off_16_bytes(cuda_device):
+    """Aligned row lengths in buffers that start off 16 bytes: the
+    ragged path (4-byte units in f32, 2-byte in bf16), bitwise against
+    the bulk path on the aligned copy."""
+    topo = Topology(8, 4)
+    rng = np.random.default_rng(9)
+    for label, sched in _registry(topo):
+        kex = get_kernel_exec(sched, topo=topo)
+        if not kex.tables["copy_only"]:
+            continue
+        buf = _float_buf(rng, (8, sched.num_slots, 4, 64))
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.from_numpy(buf).to(cuda_device, dtype)
+            want = kex.run(g, _body="gather")
+            assert kex.last_launch["path"] == "bulk", label
+            got = _gather_body(kex, _off16(g), label)
+            assert kex.last_launch["path"] == "ragged", label
+            assert torch.equal(_bits(got), _bits(want)), label
+
+
+@pytest.mark.parametrize("width", [64, 33])
+def test_transport_gather_body_zero_rows_and_repeated_targets(
+        cuda_device, monkeypatch, width):
+    """A masked gather lands all-zero bytes (a -0.0 target turns +0.0),
+    and at a repeated target the last landing wins, on the bulk (64) and
+    the ragged (33) path, against run_reference."""
+    monkeypatch.setenv("REPRO_VALIDATE_SCHEDULES", "0")
+    masked = CommSchedule(nranks=2, num_slots=2, rounds=(CommRound(
+        perm=((0, 1),), gather_idx=np.array([[-1, 0], [-1, -1]], np.int32),
+        scatter_idx=np.array([[-1, -1], [0, 1]], np.int32),
+        reduce=False),), name="masked")
+    dup = CommSchedule(nranks=2, num_slots=2, rounds=(CommRound(
+        perm=((0, 1), (1, 0)), gather_idx=np.array([[0, 1], [0, 1]],
+                                                    np.int32),
+        scatter_idx=np.array([[1, 1], [0, 0]], np.int32),
+        reduce=False),), name="dup")
+    rng = np.random.default_rng(10)
+    for sched in (masked, dup):
+        buf = _float_buf(rng, (2, 2, 4, width))
+        buf[1] = -0.0
+        want = SimTransport(2).run_reference(sched, buf)
+        kex = get_kernel_exec(sched, optimize=False)
+        assert kernel_lowering.gather_tables(kex.ex)["zero_rows"] == (
+            sched.name == "masked")
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.from_numpy(buf).to(cuda_device, dtype)
+            got = _gather_body(kex, g, sched.name)
+            assert kex.last_launch["path"] == ("bulk" if _bulk(g)
+                                               else "ragged")
+            if dtype == torch.float32:
+                assert got.cpu().numpy().tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

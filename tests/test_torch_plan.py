@@ -240,9 +240,14 @@ SHARED_PLANS = {"allreduce 25 MiB/rank f32, flat 8 (DDP bucket)": (128, 2),
 
 def test_tall_plans_take_the_global_body():
     """The KV plan of the serving trace at 1024 blocks a rank (14,008
-    rows of [16, 2048] f32) cannot fit shared memory: the global body.
-    Every main-path collective of the card smoke keeps the shared body
-    with the same tiling as before."""
+    rows of [16, 2048] f32) cannot fit shared memory: the gather body,
+    since it has no reduce round; a plan that tall with a reduce round
+    takes the global body.  Every main-path collective of the card smoke
+    keeps the shared body with the same tiling as before."""
+    assert pick_tile(14008, 0, 4, 16 * 2048, "kv", 40000,
+                     copy_only=True) == ("gather", 32768, 4)
+    assert pick_tile(3504, 0, 4, 16 * 2048, "kv", 10000,
+                     copy_only=True)[0] == "gather"
     assert pick_tile(14008, 0, 4, 16 * 2048, "kv", 40000) == \
         ("global", 32, 0)
     assert pick_tile(3504, 0, 4, 16 * 2048, "kv", 10000)[0] == "global"
@@ -260,13 +265,16 @@ def test_tall_plans_take_the_global_body():
         sched = REGISTRY[coll][algo](topo)
         t = get_kernel_exec(sched, topo=topo).tables
         got = pick_tile(n * sched.num_slots, t["stage_rows"], elem,
-                        int(np.prod(slot)), sched.name, len(t["tab"]))
+                        int(np.prod(slot)), sched.name, len(t["tab"]),
+                        copy_only=t["copy_only"])
         assert got == ("shared",) + SHARED_PLANS[label], label
 
 
 def test_kv_plan_rows_exceed_shared_memory():
     """A real transfer plan of the engine at 256 blocks a rank already
-    has more rows than the shared body can hold at 128-byte rows."""
+    has more rows than the shared body can hold at 128-byte rows: it
+    takes the gather body (no reduce round), or the global body where
+    forced."""
     from repro_torch.core import kvtransfer
 
     topo = Topology(8, 4)
@@ -283,6 +291,13 @@ def test_kv_plan_rows_exceed_shared_memory():
     ns = 8 * tp.schedule.num_slots
     assert ns > 1700
     t = get_kernel_exec(tp.schedule, topo=topo).tables
+    assert t["copy_only"]
+    assert pick_tile(ns, t["stage_rows"], 4, 16 * 2048, "kv",
+                     len(t["tab"]), copy_only=t["copy_only"])[0] == "gather"
+    assert pick_tile(ns, t["stage_rows"], 4, 16 * 2048, "kv",
+                     len(t["tab"]), copy_only=t["copy_only"],
+                     body="global")[0] == "global"
+    # as tall with a reduce round: the global body
     assert pick_tile(ns, t["stage_rows"], 4, 16 * 2048, "kv",
                      len(t["tab"]))[0] == "global"
     with pytest.raises(ValueError, match="shared memory"):

@@ -227,6 +227,29 @@ class TestTransferPlan:
         res.updates[2] = (rows, -vals)
         assert not kvtransfer.verify_bitwise(tp, pool, res)
 
+    @pytest.mark.parametrize("transport", ["sim", "kernel"])
+    def test_result_hashes_and_compares_by_identity(self, transport):
+        """Two results of the same batch, as the reference's do: each
+        hashes, equals itself only, and can be a set member (a generated
+        ``__eq__`` over a dict of tensors could not)."""
+        topo, jtopo = Topology(4, 2), JTopology(4, 2)
+        moves = [kvtransfer.BlockMove(0, 1, 2, 0),
+                 kvtransfer.BlockMove(1, 3, 3, 2)]
+        pool = _pool(np.random.default_rng(4), (4, 4, 2))
+        tp = kvtransfer.build_transfer_plan(moves, topo, blocks_per_rank=4)
+        jtp = jkv.build_transfer_plan(
+            [jkv.BlockMove(*vars(m).values()) for m in moves], jtopo,
+            blocks_per_rank=4)
+        for run, plan, buf, via in (
+                (kvtransfer.run_transfer, tp, torch.from_numpy(pool),
+                 transport),
+                (jkv.run_transfer, jtp, pool, "sim")):
+            r, r2 = (run(plan, buf, transport=via) for _ in range(2))
+            assert hash(r) == hash(r) and hash(r) != hash(r2)
+            assert r == r and not (r != r)
+            assert r != r2 and not (r == r2)
+            assert {r, r2} == {r2, r} and len({r, r, r2}) == 2
+
 
 # ---------------------------------------------------------------------------
 # engine state machine
