@@ -62,6 +62,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              row map and ``g.clone()``, and the round-by-round global
              body forced on it (the gather and global bodies' rows of
              the kernels line);
+3r. resilience — the recovery ladder (``core.resilient``) on
+             ``KernelTransport`` with the ladder kernel -> sim ->
+             reference: the main path's three collectives at their sizes
+             under ``verify`` off / canary (and full for the flat-8
+             allreduce): one launch, recovered on the kernel rung,
+             undegraded, bitwise ``run_global``; host ms of each beside
+             the kernel ms and ``tuner.verify_overhead_s``'s modeled
+             figure (a model, not a card time); seeded campaigns
+             (corrupt nan / bitflip, fail, hang with a deadline, mixed;
+             seeds 0-4) with the kernel rung chaos-wrapped, verify full,
+             on a flat-8 allreduce of 1 MiB a rank: every result bitwise
+             the numpy oracle, every report equal to the same plan's on
+             the CPU with the sim rung wrapped; the canary row bitwise
+             through every body that holds a canary'd plan (shared,
+             global, gather); a persistent fail walking to sim, bitwise;
+             phase (k)'s KV trace with ``FaultPlan(0, "corrupt",
+             times=1, mode="nan")`` round the kernel rung under verify
+             canary: 40/40 served, every batch bitwise, the transfer log
+             equal to phase (k)'s, the degraded batches and their rung
+             printed, then each batch replayed for the host ms of its
+             checks;
+3p. partitioned — ``partitioned_schedule(8, shift by one, P)`` for P in
+             1, 2, 4, 8 through ``KernelTransport.run_global`` at 25 MiB
+             f32 a rank: bitwise ``SimTransport.run`` and the monolithic
+             shift, bit-identical across P, one launch each (body
+             printed), ms beside the bound and ``g.clone()``;
 3c. launcher — ``python -m repro_torch.launch.serve --arch gemma2-2b
              --continuous --kv-transport kernel`` in a subprocess: exit 0,
              every request served;
@@ -145,6 +171,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -201,7 +228,11 @@ def main() -> int:
     cases = main_path(torch, dev)
     kvrun = kv_path(torch, dev)
     gather_row, global_row = gather_body_timing(torch, kvrun)
+    kv_log, kv_batches = kvrun["log"], kvrun["batches"]
     del kvrun
+    torch.cuda.empty_cache()
+    resilience(torch, dev, cases, kv_log, kv_batches)
+    partitioned(torch, dev)
     torch.cuda.empty_cache()
     launcher_continuous(torch)
     served = serve_path(torch, dev)
@@ -1047,6 +1078,7 @@ def kv_path(torch, dev) -> dict:
     print(f"kv path: phase {time.perf_counter() - t0:.2f} s", flush=True)
     return {"metrics": m, "launches": launches["schedule_exec"],
             "gather_launches": bodies["gather"], "batches": rows,
+            "log": log,
             "largest": {"sched": tp.schedule, "topo": tp.topo, "gbuf": g,
                         "batch": big}}
 
@@ -1132,6 +1164,372 @@ def gather_body_timing(torch, kvrun) -> tuple[dict, dict]:
           f"{glob_bound:.4f} ms); launches on the KV path "
           f"{kvrun['gather_launches']}", flush=True)
     return row, glob_row
+
+
+# ---------------------------------------------------------------------------
+# the recovery ladder and the partitioned schedules on the card
+# ---------------------------------------------------------------------------
+
+
+RESIL_LADDER = ("kernel", "sim", "reference")
+# (campaign, corruption mode) of phase (r)'s seeded runs
+CAMPAIGN_RUNS = [("corrupt", "nan"), ("corrupt", "bitflip"), ("fail", None),
+                 ("hang", None), ("mixed", None)]
+HANG_S, DEADLINE_S = 0.005, 0.004          # on the card
+CPU_HANG_S, CPU_DEADLINE_S = 0.5, 0.4      # the CPU twin's numpy rung
+
+
+def _report_key(rep, rename=None) -> tuple:
+    """A report's attempts (rung, algorithm, attempt, outcome), verdicts
+    and where it recovered, rung names mapped through ``rename``."""
+    rename = rename or {}
+    return ([(rename.get(a.rung, a.rung), a.algorithm, a.attempt, a.outcome)
+             for a in rep.attempts], list(rep.verdicts),
+            rename.get(rep.recovered_with, rep.recovered_with),
+            rep.refit_algorithm)
+
+
+def _region(sched, out):
+    rows = sched.result_slots
+    return [out[r, sched.out_offset(r): sched.out_offset(r) + rows]
+            for r in range(sched.nranks)]
+
+
+def _host_ms(torch, fn, reps: int) -> float:
+    """Median host ms of ``fn()`` (which ends synchronized)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def resilience(torch, dev, cases, kv_log, kv_batches) -> None:
+    """(r) The recovery ladder on the card, on ``KernelTransport`` with
+    the ladder kernel -> sim -> reference: clean runs of the main path's
+    collectives, seeded chaos campaigns against the CPU's reports, the
+    canary row on every body, a persistent fault, and phase (k)'s KV
+    trace under a corrupt campaign."""
+    from repro_torch import cuda
+    from repro_torch.core import chaos, tuner
+    from repro_torch.core.algorithms import REGISTRY
+    from repro_torch.core.kernel_lowering import get_kernel_exec
+    from repro_torch.core.resilient import (ResilienceOptions,
+                                            ResilientExec, canary_pattern)
+    from repro_torch.core.schedule import add_canary_slot
+    from repro_torch.core.topology import flat_topology
+    from repro_torch.core.transport import KernelTransport, SimTransport
+
+    t0 = time.perf_counter()
+    # 1. clean runs at the main path's sizes: one launch, on the kernel
+    # rung, undegraded, bitwise the plain run_global
+    for c in [c for c in cases if c["kernel"] == "schedule_exec"]:
+        sched, topo, gbuf = c["sched"], c["topo"], c["args"][0]
+        n = topo.nranks
+        tr = KernelTransport(n, topo=topo)
+        want = tr.run_global(sched, gbuf)
+        kernel_ms = time_ms(torch, functools.partial(tr.run_global, sched),
+                            gbuf)
+        slot_nbytes = gbuf[0, 0].numel() * gbuf.element_size()
+        modes = ("off", "canary") + (("full",) if c is cases[0] else ())
+        line = []
+        for verify in modes:
+            ex = ResilientExec(sched, topo, options=ResilienceOptions(
+                verify=verify, ladder=RESIL_LADDER))
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            h0 = time.perf_counter()
+            out, rep = ex.run(gbuf)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - h0) * 1e3
+            launches = cuda.LAUNCHES["schedule_exec"]
+            _require(rep.recovered_with == "kernel" and not rep.degraded
+                     and launches == 1,
+                     f"{c['label']} verify={verify}: {rep.summary()}, "
+                     f"{launches} launches")
+            _require(torch.equal(_ints(out), _ints(want)),
+                     f"{c['label']} verify={verify}: != run_global")
+            body = get_kernel_exec(
+                add_canary_slot(sched) if verify != "off" else sched,
+                topo=topo).last_launch["body"]
+            del out
+            ms = _host_ms(torch, lambda: ex.run(gbuf),
+                          2 if verify == "full" else 5)
+            model_ms = tuner.verify_overhead_s(
+                sched, topo, slot_nbytes=slot_nbytes, verify=verify) * 1e3
+            line.append(f"{verify} {ms:.4f} ms (first {first_ms:.2f}; "
+                        f"{body} body; verdicts {rep.verdicts}; modeled "
+                        f"verification {model_ms:.5f} ms)")
+        print(f"resilience | {c['label']}: kernel {kernel_ms:.4f} ms; "
+              f"ResilientExec.run, host clock, median: "
+              f"{'; '.join(line)} [modeled = tuner.verify_overhead_s, a "
+              f"model at the HBM_BW model default, not a card time]",
+              flush=True)
+        del want
+    torch.cuda.empty_cache()
+
+    # 2. seeded campaigns, verify="full", on a flat-8 allreduce of 1 MiB
+    # a rank: bitwise the oracle, and the reports of the same plans on
+    # the CPU with the sim rung wrapped (kernel read as sim)
+    topo = flat_topology(8)
+    sched = REGISTRY["allreduce"]["ring_rs_ag"](topo)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    g = torch.randn((8, sched.num_slots, MIB // 4 // 8), generator=gen,
+                    device=dev)
+    g.view(-1)[::7] = -0.0
+    host = g.cpu().numpy()
+    oracle = np.stack(_region(sched, SimTransport(8).run_reference(sched,
+                                                                   host)))
+    # the canary'd plan's executor and kernel table are built here, not
+    # inside a timed attempt
+    ResilientExec(sched, topo, options=ResilienceOptions(
+        verify="full", ladder=("kernel",))).run(g)
+    walks = {}
+    # a collector pause inside a clean attempt would read as a hang
+    gc.collect()
+    gc.disable()
+    try:
+        for campaign, mode in CAMPAIGN_RUNS:
+            kw = {"mode": mode} if mode else {}
+            for seed in range(5):
+                # a deadline where a hang can fire
+                timed = campaign in ("hang", "mixed")
+                ex = ResilientExec(sched, topo, options=ResilienceOptions(
+                    verify="full", ladder=RESIL_LADDER, backoff_s=1e-4,
+                    deadline_s=DEADLINE_S if timed else None),
+                    transports={"kernel": chaos.wrap(
+                        KernelTransport(8, topo=topo), chaos.FaultPlan(
+                            seed, campaign, delay_s=HANG_S, **kw))})
+                out, rep = ex.run(g)
+                got = torch.stack(_region(sched, out)).cpu().numpy()
+                _require(got.view(np.int32).tobytes()
+                         == oracle.view(np.int32).tobytes(),
+                         f"campaign {campaign}/{mode} seed {seed}: not "
+                         f"bitwise the oracle ({rep.summary()})")
+                cpu = ResilientExec(sched, topo, options=ResilienceOptions(
+                    verify="full", ladder=("sim", "reference"),
+                    backoff_s=1e-4,
+                    deadline_s=CPU_DEADLINE_S if timed else None),
+                    transports={"sim": chaos.wrap(
+                        SimTransport(8, topo=topo), chaos.FaultPlan(
+                            seed, campaign, delay_s=CPU_HANG_S, **kw))})
+                _, cpu_rep = cpu.run(host)
+                _require(_report_key(rep, {"kernel": "sim"})
+                         == _report_key(cpu_rep),
+                         f"campaign {campaign}/{mode} seed {seed}: card "
+                         f"{rep.summary()} != CPU {cpu_rep.summary()}")
+                walks[f"{campaign}/{mode or '-'} s{seed}"] = " -> ".join(
+                    f"{a.rung}[{a.outcome}]" for a in rep.attempts)
+    finally:
+        gc.enable()
+    print(f"resilience | campaigns on a flat-8 allreduce of 1 MiB a rank "
+          f"(verify full, kernel rung wrapped; hang and mixed: hang "
+          f"{HANG_S} s, deadline {DEADLINE_S} s): all {len(walks)} bitwise "
+          f"the oracle, every report equal to the CPU's with the sim rung "
+          f"wrapped: {walks}",
+          flush=True)
+
+    # 3. the canary row through every body that holds a canary'd plan
+    from repro_torch.core import kvtransfer
+    from repro_torch.core.topology import Topology
+    a2a = REGISTRY["alltoall"]["pairwise"](topo)
+    kvt = Topology(8, 4)
+    rng = np.random.default_rng(7)
+    moves, used = [], set()
+    while len(moves) < 600:
+        src, d = int(rng.integers(4)), 4 + int(rng.integers(4))
+        row, dr = int(rng.integers(256)), int(rng.integers(256))
+        if (d, dr) not in used:
+            used.add((d, dr))
+            moves.append(kvtransfer.BlockMove(src, row, d, dr))
+    tall = kvtransfer.build_transfer_plan(moves, kvt, blocks_per_rank=256,
+                                          aggregate=True,
+                                          block_bytes=4096).schedule
+    seen = []
+    for label, s, tp, slot, dtype in (
+            ("allreduce 1 MiB/rank f32", sched, topo, g.shape[2:],
+             torch.float32),
+            ("alltoall [64, 256] bf16", a2a, topo, (64, 256),
+             torch.bfloat16),
+            (f"KV plan of {8 * tall.num_slots} rows [4, 256] f32", tall, kvt,
+             (4, 256), torch.float32)):
+        x = torch.randn((8, s.num_slots) + tuple(slot), generator=gen,
+                        device=dev).to(dtype)
+        x.view(-1)[::7] = -0.0
+        pattern = canary_pattern(s, dtype, slot).to(dev)
+        xbuf = torch.cat([x, pattern], 1)
+        want = KernelTransport(8, topo=tp).run_global(s, x)
+        kex = get_kernel_exec(add_canary_slot(s), topo=tp)
+        default = kex.plan(xbuf.element_size(), math.prod(slot))[0]
+        bodies = ["global"]
+        if kex.tables["copy_only"]:
+            bodies.append("gather")
+        if default == "shared":
+            bodies.append("shared")
+        for b in bodies:
+            out = kex.run(xbuf, _body=b)
+            torch.cuda.synchronize()
+            _require(torch.equal(_ints(out[:, s.num_slots:]), _ints(pattern)),
+                     f"canary | {label}: the {b} body lost the canary row")
+            _require(torch.equal(_ints(out[:, :s.num_slots]), _ints(want)),
+                     f"canary | {label}: the {b} body differs from the "
+                     f"plain plan's run")
+        seen.append(f"{label} (default {default}): {bodies}")
+        del x, xbuf, want, out
+    print(f"resilience | canary row bitwise through every body that holds "
+          f"the canary'd plan: {'; '.join(seen)}", flush=True)
+
+    # 4. a persistent fault on the kernel rung walks to sim
+    ex = ResilientExec(sched, topo, options=ResilienceOptions(
+        verify="canary", ladder=RESIL_LADDER, backoff_s=1e-4),
+        transports={"kernel": chaos.wrap(
+            KernelTransport(8, topo=topo),
+            chaos.FaultPlan(0, "fail", times=None))})
+    out, rep = ex.run(g)
+    got = torch.stack(_region(sched, out)).cpu().numpy()
+    _require(rep.recovered_with == "sim" and rep.degraded
+             and got.view(np.int32).tobytes()
+             == oracle.view(np.int32).tobytes(),
+             f"persistent fault: {rep.summary()}")
+    print(f"resilience | persistent fail on the kernel rung: "
+          f"{rep.summary()}, bitwise", flush=True)
+    del g, out
+
+    # 5. phase (k)'s KV trace with a corrupt campaign round the kernel rung
+    from repro_torch.serve.engine import ContinuousBatchingEngine, \
+        EngineConfig
+    from repro_torch.serve.traffic import poisson_workload, run_workload
+    res = {"verify": "canary", "ladder": RESIL_LADDER, "backoff_s": 1e-4}
+    eng = ContinuousBatchingEngine(
+        EngineConfig(**KV_CONFIG, transport="kernel", device=dev.type,
+                     resilience=res),
+        transports={"kernel": chaos.wrap(
+            KernelTransport(8, topo=kvt),
+            chaos.FaultPlan(0, "corrupt", times=1, mode="nan"))})
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t1 = time.perf_counter()
+    m = run_workload(eng, poisson_workload(0, **KV_TRACE))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = cuda.LAUNCHES["schedule_exec"]
+    _require(m["completed"] == m["submitted"] == KV_TRACE["n_requests"],
+             "kv under chaos: not every request completed")
+    _require([{k: v for k, v in x.items() if k != "seconds"}
+              for x in eng.transfer_log] == kv_log,
+             "kv under chaos: the transfer log differs from phase (k)'s")
+    degraded = [(i, r.recovered_with, " -> ".join(
+        f"{a.rung}[{a.outcome}]" for a in r.attempts))
+        for i, r in enumerate(eng.degradations) if r.degraded]
+    _require(all(r.recovered_with == "kernel" for r in eng.degradations),
+             "kv under chaos: a batch left the kernel rung")
+    _require(launches == len(eng.degradations) + len(degraded),
+             f"kv under chaos: {launches} launches for "
+             f"{len(eng.degradations)} batches, {len(degraded)} retried")
+    print(f"resilience | kv trace under FaultPlan(0, 'corrupt', times=1, "
+          f"mode='nan') on the kernel rung, verify canary: "
+          f"{m['completed']}/{m['submitted']} served, every batch bitwise "
+          f"(the engine's check), transfer log equal to phase (k)'s; "
+          f"{len(eng.degradations)} reports, {len(degraded)} degraded "
+          f"(batch, recovered on, walk): {degraded}; {launches} transport "
+          f"launches; {wall:.2f} s wall", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    # each batch replayed: host ms of the checks beside the kernel ms of
+    # phase (k) (the plain plan) and the ladder's call
+    pool = torch.randn((8, KV_CONFIG["blocks_per_rank"],
+                        KV_CONFIG["block_tokens"], KV_CONFIG["block_feat"]),
+                       generator=gen, device=dev)
+    per = []
+    for i, x in enumerate(kv_log):
+        tp = kvtransfer.build_transfer_plan(
+            list(x["moves"]), kvt,
+            blocks_per_rank=KV_CONFIG["blocks_per_rank"],
+            block_bytes=4 * KV_CONFIG["block_tokens"]
+            * KV_CONFIG["block_feat"])
+        gb = pool.new_zeros((8, tp.schedule.num_slots)
+                            + tuple(pool.shape[2:]))
+        gb[:, : KV_CONFIG["blocks_per_rank"]] = pool
+        ex = ResilientExec(tp.schedule, kvt, options=ResilienceOptions(
+            verify="canary", ladder=RESIL_LADDER))
+        ex.run(gb)        # as in the engine: the canary drawn, plan built
+        first = ex.stats["verify_s"]
+        ex.stats = {"verify_s": 0.0, "call_s": 0.0}
+        out, rep = ex.run(gb)
+        _require(rep.recovered_with == "kernel" and not rep.degraded,
+                 f"kv batch {i} replay: {rep.summary()}")
+        per.append((i, round(first * 1e3, 2),
+                    round(ex.stats["verify_s"] * 1e3, 2),
+                    round(ex.stats["call_s"] * 1e3, 2),
+                    round(kv_batches[i]["ms"], 4)))
+        del gb, out
+    print(f"resilience | kv batches, verify canary (batch, host ms of the "
+          f"checks on a first run as the engine makes it / on a second run, "
+          f"its canary row drawn / host ms of the kernel rung's call on the "
+          f"second / kernel ms of phase (k)): {per}; phase "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del pool
+
+
+def partitioned(torch, dev) -> None:
+    """(p) ``partitioned_schedule(8, shift by one, P)`` for P in 1, 2, 4,
+    8 through ``KernelTransport.run_global`` at 25 MiB f32 a rank:
+    bitwise ``SimTransport.run`` and the monolithic shift, bit-identical
+    across P, one launch each; ms beside the bound and ``g.clone()``."""
+    from repro_torch import cuda
+    from repro_torch.core.algorithms.partitioned import partitioned_schedule
+    from repro_torch.core.kernel_lowering import get_kernel_exec
+    from repro_torch.core.transport import KernelTransport, SimTransport
+
+    t0 = time.perf_counter()
+    n = 8
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    per_rank = 25 * MIB // 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    x = torch.randn((n, per_rank), generator=gen, device=dev)
+    x.view(-1)[::7] = -0.0
+    shift = x.roll(1, 0)               # rank r receives rank r - 1's
+    tr = KernelTransport(n)
+    first, rows = None, []
+    for P in (1, 2, 4, 8):
+        sched = partitioned_schedule(n, perm, P)
+        g = torch.zeros((n, 2 * P, per_rank // P), device=dev)
+        g[:, :P] = x.view(n, P, per_rank // P)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        out = tr.run_global(sched, g)
+        torch.cuda.synchronize()
+        launches = cuda.LAUNCHES["schedule_exec"]
+        run = dict(get_kernel_exec(sched).last_launch)
+        _require(launches == 1, f"partitioned p{P}: {launches} launches")
+        sim = SimTransport(n).run(sched, _np_bits(g))
+        _require(_np_bits(out).tobytes() == sim.tobytes(),
+                 f"partitioned p{P}: != SimTransport.run")
+        recv = out[:, P:].reshape(n, per_rank)
+        _require(torch.equal(_ints(recv), _ints(shift)),
+                 f"partitioned p{P}: != the monolithic shift")
+        if first is None:
+            first = recv
+        _require(torch.equal(_ints(recv), _ints(first)),
+                 f"partitioned p{P}: differs from p1")
+        ms = time_ms(torch, functools.partial(tr.run_global, sched), g)
+        clone_ms = time_ms(torch, lambda a: a.clone(), g)
+        # each rank's P chunks read once, its P received chunks written once
+        bound = n * 2 * per_rank * 4 / HBM_BYTES_PER_S * 1e3
+        floor = run["floor_bytes"] / HBM_BYTES_PER_S * 1e3
+        rows.append(f"p{P}: {ms:.4f} ms ({run['body']} body, path "
+                    f"{run['path']}, bound {bound:.4f} ms by bytes, design "
+                    f"floor {floor:.4f} ms, g.clone() {clone_ms:.4f} ms)")
+        del g, out, recv
+    print(f"partitioned | shift by one over 8 ranks, 25 MiB f32 a rank, "
+          f"P = 1, 2, 4, 8: each one launch, bitwise SimTransport.run and "
+          f"the monolithic shift, bit-identical across P: {'; '.join(rows)}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def launcher_continuous(torch) -> None:
@@ -2316,6 +2714,11 @@ def jamba_serve_path(torch, dev) -> dict:
     torch.cuda.empty_cache()
     for p in params.parameters():
         p.data = p.data.float()
+        if p.numel() >= 1 << 28:
+            # hand each freed bf16 expert stack back at once: cached, the
+            # freed blocks fragment the ~6 GiB f32 stacks' room (an OOM
+            # with 17 GiB reserved but free, seen on the card)
+            torch.cuda.empty_cache()
     cfg5 = dataclasses.replace(cfg, name=f"{cfg.name}-layers-0-4",
                                period=cfg.period[:HELD_LAYERS])
     prefill5 = make_prefill_step(cfg5, ServeOptions(use_kernel=True))

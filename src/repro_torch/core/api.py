@@ -22,17 +22,30 @@ Schedules are built once per (collective, algorithm, topology) and
 cached, and execute through the process-level compiled-executor cache
 (``core.executor``).  ``executor_cache_stats()`` /
 ``clear_executor_cache()`` expose that layer.
+
+``resilience=`` arms the recovery ladder on every collective (see
+``_execute``); ``set_chaos(plan)`` wraps every transport the API builds
+with a seeded ``core.chaos.FaultPlan`` (tests), and
+``take_degradations()`` drains the reports of calls that needed the
+ladder.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import chaos as _chaos
 from repro_torch.core import selector
 from repro_torch.core.algorithms import REGISTRY
+from repro_torch.core.resilient import (Attempt, DegradationReport,
+                                        UnrecoverableError,
+                                        resolve_resilience)
+from repro_torch.core.schedule import NotApplicable
 from repro_torch.core.topology import Topology, flat_topology
 from repro_torch.core.transport import (DistTransport, KernelTransport,
-                                        _all_gather)
+                                        TransportError, _all_gather)
 
 # plan cache: (collective, algorithm, topo) -> CommSchedule; a dict so
 # ``invalidate_topology`` can evict one geometry
@@ -106,7 +119,8 @@ TRANSPORTS = ("dist", "kernel", "auto")
 
 def _check_call(transport: str, resilience) -> None:
     """Name and option checks — run before any group resolution, so a
-    typo'd transport fails loudly even outside a process group."""
+    typo'd transport or resilience option fails loudly even outside a
+    process group."""
     if transport not in TRANSPORTS:
         raise ValueError(f"unknown transport {transport!r}; "
                          f"expected one of {TRANSPORTS}")
@@ -114,10 +128,7 @@ def _check_call(transport: str, resilience) -> None:
         raise NotImplementedError(
             "transport='auto' needs the tuner's transport policy, which "
             "is ported with the tuner slice")
-    if resilience is not None:
-        raise NotImplementedError(
-            "resilience= needs the recovery ladder, which is ported with "
-            "the resilience slice")
+    resolve_resilience(resilience)
 
 
 def _group_topology(group, topo: Topology | None) -> tuple[int, Topology]:
@@ -131,9 +142,148 @@ def _group_topology(group, topo: Topology | None) -> tuple[int, Topology]:
     return dist.get_rank(group), topo
 
 
+# Process-wide chaos plan (``core.chaos.FaultPlan``): when set, every
+# transport the api constructs is wrapped so seeded faults fire on the
+# real mpix_* execution paths.  Test-only; None in production.
+_CHAOS_PLAN = None
+
+
+def set_chaos(plan) -> None:
+    """Install (or clear, with None) the process-wide fault plan; all
+    subsequently constructed mpix_* transports are chaos-wrapped."""
+    global _CHAOS_PLAN
+    _CHAOS_PLAN = plan
+
+
+def get_chaos():
+    return _CHAOS_PLAN
+
+
 def _transport(kind: str, topo: Topology, group):
     cls = KernelTransport if kind == "kernel" else DistTransport
-    return cls(topo.nranks, group, topo=topo)
+    return _chaos.wrap(cls(topo.nranks, group, topo=topo), _CHAOS_PLAN)
+
+
+# Degradation telemetry: every mpix_* call that needed the recovery
+# ladder appends its DegradationReport here, so a degraded run is
+# visible, not silent.
+_DEGRADATIONS: list = []
+
+
+def last_degradation():
+    """The most recent DegradationReport (None when nothing degraded)."""
+    return _DEGRADATIONS[-1] if _DEGRADATIONS else None
+
+
+def take_degradations() -> list:
+    """Drain and return all accumulated DegradationReports."""
+    out = list(_DEGRADATIONS)
+    _DEGRADATIONS.clear()
+    return out
+
+
+def _execute(collective: str, run, *, algorithm: str, transport: str,
+             resilience, xla_ok: bool = True):
+    """Shared execution path of every mpix_* collective.
+
+    ``run(kind, algo)`` closes over the collective's buffers and does
+    one full attempt on transport ``kind`` ("dist"/"kernel", or the
+    native collective when ``algo == "xla"``).  Without ``resilience``
+    this is a zero-overhead passthrough.  With it, the recovery ladder
+    runs: detected faults — a raised ``TransportError`` (a failed dist
+    round, an injected chaos failure), a ``NotApplicable`` refit miss,
+    or a wall-clock deadline overrun — are retried with exponential
+    backoff, degraded to the other of the dist/kernel transports,
+    refitted down the selector's algorithm ladder, and finally routed
+    to the native ``torch.distributed`` collective (``algorithm="xla"``,
+    the system-MPI rung) before a typed ``UnrecoverableError`` is
+    raised.  A failure of the CUDA kernel itself is not a
+    ``TransportError`` and propagates.
+
+    This layer keeps the reference's semantics: it recovers *detected*
+    faults only (``verify`` is not applied here); silent corruption is
+    caught by the host-level ``ResilientExec`` (core.resilient).  Every
+    rank of the group walks the ladder on its own; seeded chaos fires
+    alike on every rank, so they walk it alike.
+    """
+    opts = resolve_resilience(resilience)
+    if algorithm == "xla":
+        return run("xla", "xla")
+    if opts is None:
+        return run(transport, algorithm)
+
+    report = DegradationReport(schedule=f"{collective}.{algorithm}",
+                               verify="off")
+
+    def finish(out, rung):
+        report.recovered_with = rung
+        if report.degraded:
+            _DEGRADATIONS.append(report)
+        return out
+
+    kinds = [transport] + [k for k in ("dist", "kernel") if k != transport]
+    for k in kinds:
+        delay = opts.backoff_s
+        for attempt in range(opts.max_retries + 1):
+            t0 = time.perf_counter()
+            try:
+                out = run(k, algorithm)
+            except TransportError as e:
+                report.attempts.append(Attempt(
+                    rung=k, algorithm=algorithm, attempt=attempt,
+                    outcome="fault", detail=str(e),
+                    seconds=time.perf_counter() - t0))
+                time.sleep(delay)
+                delay *= opts.backoff_mult
+                continue
+            if isinstance(out, torch.Tensor) and out.device.type == "cuda":
+                torch.cuda.synchronize(out.device)
+            dt = time.perf_counter() - t0
+            if opts.deadline_s is not None and dt > opts.deadline_s:
+                report.attempts.append(Attempt(
+                    rung=k, algorithm=algorithm, attempt=attempt,
+                    outcome="timeout", seconds=dt,
+                    detail=f"{dt:.4f}s > deadline {opts.deadline_s:.4f}s"))
+                time.sleep(delay)
+                delay *= opts.backoff_mult
+                continue
+            report.attempts.append(Attempt(
+                rung=k, algorithm=algorithm, attempt=attempt,
+                outcome="ok", seconds=dt))
+            return finish(out, k)
+    if opts.refit:
+        ladder = [a for a in selector._FIXED.get(collective, ())
+                  if a != algorithm]
+        ladder += [a for a in REGISTRY.get(collective, {})
+                   if a != algorithm and a not in ladder]
+        for cand in ladder:
+            try:
+                out = run(kinds[0], cand)
+            except (TransportError, NotApplicable) as e:
+                report.attempts.append(Attempt(
+                    rung="refit", algorithm=cand, attempt=0,
+                    outcome="fault" if isinstance(e, TransportError)
+                    else "skipped", detail=str(e) or type(e).__name__))
+                continue
+            report.attempts.append(Attempt(
+                rung="refit", algorithm=cand, attempt=0, outcome="ok"))
+            report.refit_algorithm = cand
+            return finish(out, kinds[0])
+    if xla_ok:
+        try:
+            out = run("xla", "xla")
+        except Exception as e:  # the native collective is a best-effort end
+            report.attempts.append(Attempt(
+                rung="xla", algorithm="xla", attempt=0,
+                outcome="fault", detail=str(e)))
+        else:
+            report.attempts.append(Attempt(
+                rung="xla", algorithm="xla", attempt=0, outcome="ok"))
+            report.refit_algorithm = "xla"
+            return finish(out, "xla")
+    raise UnrecoverableError(
+        f"{collective} could not be recovered on any transport or "
+        f"algorithm", report)
 
 
 def _algorithm(collective: str, algorithm: str, policy, topo: Topology,
@@ -163,17 +313,23 @@ def mpix_allgather(x: torch.Tensor, group=None, *, algorithm: str = "auto",
     _check_call(transport, resilience)
     rank, topo = _group_topology(group, topo)
     n = topo.nranks
-    algo = _algorithm("allgather", algorithm, policy, topo,
-                      x.numel() * x.element_size())
-    if algo == "xla":
-        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-        _all_gather(out, x, group)
-        return out
-    sched = _schedule("allgather", algo, topo)
-    buf = x.new_zeros((n,) + tuple(x.shape))
-    buf[rank] = x
-    out = _transport(transport, topo, group).run(sched, buf)
-    return out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+    nbytes = x.numel() * x.element_size()
+
+    def run(kind, algo):
+        if algo == "xla":
+            out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+            _all_gather(out, x, group)
+            return out
+        sched = _schedule("allgather", algo, topo)
+        buf = x.new_zeros((n,) + tuple(x.shape))
+        buf[rank] = x
+        out = _transport(kind, topo, group).run(sched, buf)
+        return out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+
+    return _execute("allgather", run,
+                    algorithm=_algorithm("allgather", algorithm, policy,
+                                         topo, nbytes),
+                    transport=transport, resilience=resilience)
 
 
 def mpix_allreduce(x: torch.Tensor, group=None, *, algorithm: str = "auto",
@@ -184,16 +340,22 @@ def mpix_allreduce(x: torch.Tensor, group=None, *, algorithm: str = "auto",
     _check_call(transport, resilience)
     _, topo = _group_topology(group, topo)
     n = topo.nranks
-    algo = _algorithm("allreduce", algorithm, policy, topo,
-                      x.numel() * x.element_size())
-    if algo == "xla":
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-    sched = _schedule("allreduce", algo, topo)
-    flat = _pad_to(x, n)
-    out = _transport(transport, topo, group).run(sched, flat.reshape(n, -1))
-    return out.reshape(-1)[: x.numel()].reshape(x.shape)
+    nbytes = x.numel() * x.element_size()
+
+    def run(kind, algo):
+        if algo == "xla":
+            out = x.clone()
+            dist.all_reduce(out, group=group)
+            return out
+        sched = _schedule("allreduce", algo, topo)
+        flat = _pad_to(x, n)
+        out = _transport(kind, topo, group).run(sched, flat.reshape(n, -1))
+        return out.reshape(-1)[: x.numel()].reshape(x.shape)
+
+    return _execute("allreduce", run,
+                    algorithm=_algorithm("allreduce", algorithm, policy,
+                                         topo, nbytes),
+                    transport=transport, resilience=resilience)
 
 
 def mpix_reduce_scatter(x: torch.Tensor, group=None, *,
@@ -211,18 +373,35 @@ def mpix_reduce_scatter(x: torch.Tensor, group=None, *,
             f"mpix_reduce_scatter: leading dim {x.shape[0]} of input "
             f"shape {tuple(x.shape)} must be divisible by nranks={n} "
             f"(one scatter block per rank)")
-    algo = _algorithm("reduce_scatter", algorithm, policy, topo,
-                      x.numel() * x.element_size())
-    if algo == "xla":
-        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-        fn = getattr(dist, "reduce_scatter_single", None) or \
-            dist.reduce_scatter_tensor
-        fn(out, x.contiguous(), group=group)
-        return out
-    sched = _schedule("reduce_scatter", algo, topo)
-    blocks = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
-    out = _transport(transport, topo, group).run(sched, blocks)
-    return out[rank]
+    nbytes = x.numel() * x.element_size()
+
+    def run(kind, algo):
+        if algo == "xla":
+            out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+            fn = getattr(dist, "reduce_scatter_single", None) or \
+                dist.reduce_scatter_tensor
+            fn(out, x.contiguous(), group=group)
+            return out
+        sched = _schedule("reduce_scatter", algo, topo)
+        blocks = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+        out = _transport(kind, topo, group).run(sched, blocks)
+        return out[rank]
+
+    return _execute("reduce_scatter", run,
+                    algorithm=_algorithm("reduce_scatter", algorithm, policy,
+                                         topo, nbytes),
+                    transport=transport, resilience=resilience)
+
+
+def _alltoall_blocks(x: torch.Tensor, sched, n: int, rows: int):
+    """[n, rows, ...] blocks, with a zeroed receive region appended for
+    schedules that have one, as the schedules expect."""
+    blocks = x.reshape((n, rows) + tuple(x.shape[1:]))
+    if sched.num_blocks > n:          # schedules with a separate recv region
+        pad = blocks.new_zeros((sched.num_blocks - n,)
+                               + tuple(blocks.shape[1:]))
+        blocks = torch.cat([blocks, pad], 0)
+    return blocks
 
 
 def mpix_alltoall(x: torch.Tensor, group=None, *, algorithm: str = "auto",
@@ -239,20 +418,22 @@ def mpix_alltoall(x: torch.Tensor, group=None, *, algorithm: str = "auto",
             f"mpix_alltoall: leading dim {x.shape[0]} of input shape "
             f"{tuple(x.shape)} must be divisible by nranks={n} "
             f"(one block per destination rank)")
-    algo = _algorithm("alltoall", algorithm, policy, topo,
-                      x.numel() * x.element_size())
-    if algo == "xla":
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
-        return out
-    sched = _schedule("alltoall", algo, topo)
-    blocks = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
-    if sched.num_blocks > n:          # schedules with a separate recv region
-        pad = blocks.new_zeros((sched.num_blocks - n,)
-                               + tuple(blocks.shape[1:]))
-        blocks = torch.cat([blocks, pad], 0)
-    out = _transport(transport, topo, group).run(sched, blocks)
-    return out[: sched.result_blocks].reshape(x.shape)
+    nbytes = x.numel() * x.element_size()
+
+    def run(kind, algo):
+        if algo == "xla":
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x.contiguous(), group=group)
+            return out
+        sched = _schedule("alltoall", algo, topo)
+        blocks = _alltoall_blocks(x, sched, n, x.shape[0] // n)
+        out = _transport(kind, topo, group).run(sched, blocks)
+        return out[: sched.result_blocks].reshape(x.shape)
+
+    return _execute("alltoall", run,
+                    algorithm=_algorithm("alltoall", algorithm, policy,
+                                         topo, nbytes),
+                    transport=transport, resilience=resilience)
 
 
 def mpix_alltoall_overlap(x: torch.Tensor, group, consume, init, *,
@@ -273,7 +454,8 @@ def mpix_alltoall_overlap(x: torch.Tensor, group, consume, init, *,
     select_overlap_chunks`` prices the pipeline against ``compute_s``
     seconds of consumer compute); ``chunks=1`` is one ``mpix_alltoall``
     and one ``consume`` call.  Explicit ``chunks>1`` must divide the
-    per-block row count."""
+    per-block row count.  ``resilience=`` arms the recovery ladder on
+    the whole pipelined exchange."""
     _check_call(transport, resilience)
     _, topo = _group_topology(group, topo)
     n = topo.nranks
@@ -300,32 +482,35 @@ def mpix_alltoall_overlap(x: torch.Tensor, group, consume, init, *,
     if chunks <= 1:
         return consume(init, mpix_alltoall(x, group, algorithm=algorithm,
                                            policy=policy, topo=topo,
-                                           transport=transport), 0)
+                                           transport=transport,
+                                           resilience=resilience), 0)
     rc = rows // chunks
     tail = tuple(x.shape[1:])
-    algo = _algorithm("alltoall", algorithm, policy, topo, nbytes)
-    if algo == "xla":
-        blocks = x.reshape((n, chunks, rc) + tail)
-        carry = init
-        for i in range(chunks):
-            xi = blocks[:, i].reshape((n * rc,) + tail).contiguous()
-            out = torch.empty_like(xi)
-            dist.all_to_all_single(out, xi, group=group)
-            carry = consume(carry, out, i)
-        return carry
-    sched = _schedule("alltoall", algo, topo)
-    blocks = x.reshape((n, rows) + tail)
-    if sched.num_blocks > n:          # schedules with a separate recv region
-        pad = blocks.new_zeros((sched.num_blocks - n,)
-                               + tuple(blocks.shape[1:]))
-        blocks = torch.cat([blocks, pad], 0)
 
-    def fold(carry, out_c, i):
-        return consume(carry, out_c[: sched.result_blocks]
-                       .reshape((n * rc,) + tail), i)
+    def run(kind, algo):
+        if algo == "xla":
+            blocks = x.reshape((n, chunks, rc) + tail)
+            carry = init
+            for i in range(chunks):
+                xi = blocks[:, i].reshape((n * rc,) + tail).contiguous()
+                out = torch.empty_like(xi)
+                dist.all_to_all_single(out, xi, group=group)
+                carry = consume(carry, out, i)
+            return carry
+        sched = _schedule("alltoall", algo, topo)
+        blocks = _alltoall_blocks(x, sched, n, rows)
 
-    return _transport(transport, topo, group).run_chunked(
-        sched, blocks, chunks=chunks, consume=fold, init=init)
+        def fold(carry, out_c, i):
+            return consume(carry, out_c[: sched.result_blocks]
+                           .reshape((n * rc,) + tail), i)
+
+        return _transport(kind, topo, group).run_chunked(
+            sched, blocks, chunks=chunks, consume=fold, init=init)
+
+    return _execute("alltoall", run,
+                    algorithm=_algorithm("alltoall", algorithm, policy,
+                                         topo, nbytes),
+                    transport=transport, resilience=resilience)
 
 
 # ---------------------------------------------------------------------------
@@ -356,11 +541,19 @@ def mpix_neighbor_alltoallv(x: torch.Tensor, group, plan, *,
     """Execute a compiled ``NeighborPlan`` on every rank of ``group``.
 
     ``x`` is this rank's [n_local_max, feat] value rows; returns
-    [n_recv_max, feat] (rows past this rank's recv size are zeros)."""
+    [n_recv_max, feat] (rows past this rank's recv size are zeros).
+    Under ``resilience=`` the ladder walks the transports; a neighbor
+    plan has no native collective to end on."""
     _check_call(transport, resilience)
     from repro_torch.core.plan import run_dist
     _group_topology(group, plan.topo)
-    return run_dist(plan, x, group, transport=transport)
+
+    def run(kind, algo):
+        return run_dist(plan, x, group, transport=kind)
+
+    return _execute("neighbor_alltoallv", run, algorithm=plan.name,
+                    transport=transport, resilience=resilience,
+                    xla_ok=False)
 
 
 # ---------------------------------------------------------------------------
@@ -384,16 +577,32 @@ def mpix_allreduce_rmsnorm(x: torch.Tensor, group, scale: torch.Tensor, *,
     reaches device memory.  ``x`` is [..., d] with rmsnorm over the last
     dim; the sum is in f32 whatever the dtype, so results match
     allreduce+rmsnorm to float tolerance, not bitwise.  On "dist" it is
-    ``mpix_allreduce`` followed by the plain rmsnorm kernel."""
+    ``mpix_allreduce`` followed by the plain rmsnorm kernel.  Under
+    ``resilience=`` a ``TransportError`` of the fused path degrades it
+    to ``mpix_allreduce`` (resilient itself) then rmsnorm, with a
+    report."""
     _check_call(transport, resilience)
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     _, topo = _group_topology(group, topo)
     if transport == "kernel":
-        parts = x.new_empty((topo.nranks,) + tuple(x.shape))
-        _all_gather(parts.view((-1,) + tuple(x.shape[1:])), x, group)
-        return rms_ops.rmsnorm_allreduce(parts, scale, eps, gemma_style)
+        try:
+            parts = x.new_empty((topo.nranks,) + tuple(x.shape))
+            _all_gather(parts.view((-1,) + tuple(x.shape[1:])), x, group)
+            return rms_ops.rmsnorm_allreduce(parts, scale, eps, gemma_style)
+        except TransportError as e:
+            if resolve_resilience(resilience) is None:
+                raise
+            # degrade the fused kernel to allreduce-then-normalize and
+            # surface the decision
+            report = DegradationReport(
+                schedule="allreduce_rmsnorm.fused", verify="off")
+            report.attempts.append(Attempt(
+                rung="kernel", algorithm="fused", attempt=0,
+                outcome="fault", detail=str(e)))
+            report.recovered_with = "dist"
+            _DEGRADATIONS.append(report)
     y = mpix_allreduce(x, group, algorithm=algorithm, policy=policy,
-                       topo=topo, transport="dist")
+                       topo=topo, transport="dist", resilience=resilience)
     return rms_ops.rmsnorm(y, scale, eps, gemma_style)
 
 
@@ -403,4 +612,6 @@ __all__ = [
     "mpix_neighbor_alltoallv", "make_neighbor_plan",
     "set_default_policy", "get_default_policy", "executor_cache_stats",
     "clear_executor_cache", "invalidate_topology", "TRANSPORTS",
+    "set_chaos", "get_chaos", "last_degradation", "take_degradations",
+    "UnrecoverableError", "DegradationReport",
 ]

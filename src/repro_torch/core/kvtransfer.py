@@ -169,17 +169,20 @@ class TransferResult:
 
     ``updates[d]`` is ``(dst rows, values)``: the rows a numpy array,
     the values a tensor on the pool's device.  ``seconds`` is the wall
-    time of the execution, taken after the device finished it."""
+    time of the execution, taken after the device finished it.
+    ``report`` is the ``DegradationReport`` when resilience was armed."""
 
     updates: dict[int, tuple[np.ndarray, torch.Tensor]]
     seconds: float
     nbytes: int
     plan_name: str
+    report: object = None
 
 
 def run_transfer(tp: KVTransferPlan, pool: torch.Tensor, *,
                  transport: str = "kernel", group=None,
-                 resilience=None) -> TransferResult:
+                 resilience=None,
+                 transports: dict | None = None) -> TransferResult:
     """Execute the plan's schedule on the global block pool.
 
     ``pool`` is ``[nranks, blocks_per_rank, *block]`` (prefill ranks'
@@ -189,7 +192,10 @@ def run_transfer(tp: KVTransferPlan, pool: torch.Tensor, *,
     ``batch_isend_irecv`` per compiled round, called by every rank of
     ``group`` with the same pool); ``kernel`` (the whole schedule as one
     kernel on the pool's device, its plain version on a CPU pool).
-    ``resilience=`` needs the recovery ladder, which is not yet ported.
+    With ``resilience=`` armed the run goes through ``ResilientExec``
+    instead — the verify/retry/fallback ladder on the pool's device,
+    chaos injectable via ``transports={rung: wrapped}`` — and the
+    result carries its ``DegradationReport``.
     """
     from repro_torch.core.transport import (DistTransport, KernelTransport,
                                             SimTransport)
@@ -197,10 +203,6 @@ def run_transfer(tp: KVTransferPlan, pool: torch.Tensor, *,
     if transport not in TRANSPORTS:
         raise ValueError(f"unknown transport {transport!r}; expected "
                          f"{' | '.join(TRANSPORTS)}")
-    if resilience is not None:
-        raise NotImplementedError(
-            "resilience= needs the recovery ladder, which is ported with "
-            "the resilience slice")
     sched, topo, n = tp.schedule, tp.topo, tp.topo.nranks
     if tuple(pool.shape[:2]) != (n, tp.blocks_per_rank):
         raise ValueError(f"pool {tuple(pool.shape)} does not match "
@@ -208,9 +210,19 @@ def run_transfer(tp: KVTransferPlan, pool: torch.Tensor, *,
     feat = tuple(pool.shape[2:])
     sync = (torch.cuda.synchronize if pool.device.type == "cuda"
             else lambda: None)
+    report = None
     sync()
     t0 = time.perf_counter()
-    if transport in ("sim", "reference"):
+    if resilience is not None:
+        from repro_torch.core.resilient import (ResilientExec,
+                                                resolve_resilience)
+        gbuf = pool.new_zeros((n, sched.num_slots) + feat)
+        gbuf[:, : tp.blocks_per_rank] = pool
+        ex = ResilientExec(sched, topo,
+                           options=resolve_resilience(resilience),
+                           transports=transports, group=group)
+        out, report = ex.run(gbuf)
+    elif transport in ("sim", "reference"):
         host = pool.cpu().numpy()
         gbuf = np.zeros((n, sched.num_slots) + feat, host.dtype)
         gbuf[:, : tp.blocks_per_rank] = host
@@ -235,7 +247,8 @@ def run_transfer(tp: KVTransferPlan, pool: torch.Tensor, *,
     sync()
     return TransferResult(updates=updates,
                           seconds=time.perf_counter() - t0,
-                          nbytes=tp.nbytes, plan_name=tp.plan.name)
+                          nbytes=tp.nbytes, plan_name=tp.plan.name,
+                          report=report)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,12 @@
 
 This module holds what the port's selection paths need today: the chunk
 count of ``mpix_alltoall_overlap``'s auto mode (``select_overlap_chunks``)
-priced by the alpha-beta model of the compiled schedules.  The measured
-tables (``tune``/``autotune``, the persisted ``TunedTable`` and the
-"tuned" policy that reads it) are ported with the tuning slice; until
-then ``policy="tuned"`` raises ``NotImplementedError``.
+priced by the alpha-beta model of the compiled schedules, and the
+modeled price of the recovery ladder's verification
+(``verify_overhead_s``).  The measured tables (``tune``/``autotune``,
+the persisted ``TunedTable`` and the "tuned" policy that reads it) are
+ported with the tuning slice; until then ``policy="tuned"`` raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -64,3 +66,28 @@ def select_overlap_chunks(topo: Topology, nbytes: int, compute_s: float,
     ex = executor.get_executor(sched, topo=topo)
     return min(_OVERLAP_PARTS,
                key=lambda p: (ex.chunked_makespan(block, p, compute_s), p))
+
+
+def verify_overhead_s(schedule, topo: Topology, *, slot_nbytes: int,
+                      verify: str = "canary") -> float:
+    """Modeled cost of ``core.resilient``'s per-run integrity check, so
+    resilience is priced like any other knob.  A model, not a time
+    measured on a card: it uses the topology module's ``HBM_BW`` model
+    default (which fingerprint parity with the reference needs).
+
+    "canary" is verification WITHOUT a second execution: one pass over
+    the result region plus the canary row — ``(result_slots + 1) *
+    slot_nbytes`` bytes at ``HBM_BW``.  "full" adds one trusted
+    reference execution of the schedule (alpha-beta modeled) plus a
+    second result-region pass for the bitwise compare.  "off" is free.
+    """
+    from repro_torch.core.topology import HBM_BW
+    if verify == "off":
+        return 0.0
+    scan = (schedule.result_slots + 1) * max(1, int(slot_nbytes)) / HBM_BW
+    if verify == "canary":
+        return scan
+    if verify == "full":
+        return (schedule.modeled_time(topo, slot_nbytes) + 2 * scan)
+    raise ValueError(f"unknown verify mode {verify!r}; "
+                     f"expected off/canary/full")

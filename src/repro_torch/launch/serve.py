@@ -34,7 +34,11 @@ batch of KV blocks moves prefill -> decode through a ragged neighbor
 plan on ``--kv-transport`` (``kernel``: one launch of the transport
 kernel a batch; ``dist``: one ``batch_isend_irecv`` a round, every rank
 of a ``torchrun`` group driving the same engine) and is verified bitwise
-against the gather oracle.
+against the gather oracle.  ``--resilience canary|full`` arms the
+recovery ladder on those transfers: led by ``--kv-transport``, then the
+numpy ``sim`` and ``reference`` rungs; the count of degradation reports
+is printed.  It protects nothing without ``--continuous`` (the
+single-shot decode runs no collective), so the launcher refuses that.
 """
 from __future__ import annotations
 
@@ -111,11 +115,20 @@ def _drive_engine(args, cfg, device: torch.device, group) -> dict:
         EngineConfig
     from repro_torch.serve.traffic import poisson_workload, run_workload
 
+    resilience = None
+    if args.resilience != "off":
+        # lead the ladder with the requested substrate; then the host
+        # rungs, which run whatever the card does
+        lead = args.kv_transport if args.kv_transport != "reference" \
+            else "sim"
+        ladder = tuple(dict.fromkeys((lead, "sim", "reference")))
+        resilience = {"verify": args.resilience, "ladder": ladder,
+                      "backoff_s": 1e-4}
     ecfg = EngineConfig(
         blocks_per_rank=args.kv_blocks,
         block_feat=(getattr(cfg, "head_dim", None) or 16),
         transport=args.kv_transport, policy=args.select_policy,
-        device=str(device))
+        resilience=resilience, device=str(device))
     engine = ContinuousBatchingEngine(ecfg, group=group)
     trace = poisson_workload(args.seed, arrival_rate=args.arrival_rate,
                              tenants=args.tenants,
@@ -142,6 +155,10 @@ def _drive_engine(args, cfg, device: torch.device, group) -> dict:
           f"{kv['ici_bytes']}B ici) via {kv['plan_names']} on "
           f"{args.kv_transport} ({device}), {kv['wall_s']}s wall, every "
           f"batch bitwise against the gather oracle")
+    if metrics["degradations"]:
+        degraded = sum(1 for r in engine.degradations if r.degraded)
+        print(f"resilience: {metrics['degradations']} degradation "
+              f"report(s) collected, {degraded} degraded")
     return metrics
 
 
@@ -184,6 +201,12 @@ def main(argv=None):
                     help="continuous mode: substrate executing the KV "
                          "block-transfer schedules (dist runs under "
                          "torchrun with one process per engine rank)")
+    ap.add_argument("--resilience", default="off",
+                    choices=["off", "canary", "full"],
+                    help="continuous mode: arm the recovery ladder on the "
+                         "KV transfers (led by --kv-transport, then sim "
+                         "and reference); canary/full set the "
+                         "verification mode")
     ap.add_argument("--kv-blocks", type=int, default=32,
                     help="continuous mode: KV blocks per engine rank")
     ap.add_argument("--seed", type=int, default=0,
@@ -208,6 +231,14 @@ def main(argv=None):
             ap.error(f"--requests must be >= 1 (got {args.requests})")
         if args.kv_blocks < 1:
             ap.error(f"--kv-blocks must be >= 1 (got {args.kv_blocks})")
+    if args.resilience != "off" and not args.continuous:
+        # resilience threads through the KV transfer collectives only;
+        # without them it would silently protect nothing
+        raise SystemExit(
+            f"--resilience {args.resilience} has nothing to protect: "
+            f"the single-shot decode path runs no mpix collectives. "
+            f"Arm a protected path with --continuous (KV-cache "
+            f"transfers), or drop --resilience.")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(

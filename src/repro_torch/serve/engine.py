@@ -29,8 +29,10 @@ Scheduling invariants (tested in tests/test_torch_serve_engine.py):
     preemption protects the oldest work) back to WAITING;
   * every transfer batch is verified bitwise against the gather oracle
     — a mismatch is a typed ``TransferVerificationError``, never a
-    silently corrupt cache.  ``resilience=`` (the verify/retry/fallback
-    ladder) raises until the resilience slice is ported.
+    silently corrupt cache.  With ``resilience=`` armed the transfer
+    runs the verify/retry/fallback ladder first (``core.resilient``)
+    and each batch's ``DegradationReport`` lands in
+    ``engine.degradations``.
 
 The engine clock is the *step* (one tick = admit + prefill + transfer +
 decode); TTFT and throughput are reported both in deterministic steps
@@ -141,7 +143,7 @@ class EngineConfig:
     block_feat: int = 16         # per-token KV feature width
     max_decode_batch: int = 64   # decode tokens emitted per tick
     transport: str = "kernel"    # sim | reference | dist | kernel
-    resilience: object = None    # raises until the resilience slice
+    resilience: object = None    # None | "canary" | "full" | options
     aggregate: bool | None = None  # None = selection policy ladder
     policy: str | None = None
     device: str = "cuda"         # where the block pool lives
@@ -173,24 +175,26 @@ class ContinuousBatchingEngine:
     what makes bit-exactness testable without a model); the blocks are
     placed on the engine's device.  ``group`` is the process group the
     ``dist`` transport runs over (every rank drives the same engine).
+    ``transports`` is forwarded to the resilient transfer path — the
+    chaos tests inject ``chaos.wrap``-ped rungs there.
     """
 
     def __init__(self, cfg: EngineConfig, *,
                  decode_fn: Callable | None = None,
-                 kv_fill: Callable | None = None, group=None):
+                 kv_fill: Callable | None = None, group=None,
+                 transports: dict | None = None):
         if cfg.transport not in kvtransfer.TRANSPORTS:
             raise ValueError(f"unknown transport {cfg.transport!r}; "
                              f"expected one of {kvtransfer.TRANSPORTS}")
-        if cfg.resilience is not None:
-            raise NotImplementedError(
-                "EngineConfig.resilience needs the recovery ladder, which "
-                "is ported with the resilience slice")
+        from repro_torch.core.resilient import resolve_resilience
+        resolve_resilience(cfg.resilience)     # a bad option fails here
         self.cfg = cfg
         self.topo = cfg.topology()
         n = self.topo.nranks
         self.decode_fn = decode_fn or _default_decode
         self.kv_fill = kv_fill or self._seeded_fill
         self.group = group
+        self.transports = transports
         self.prefill_pool_ranks = range(cfg.prefill_ranks)
         self.decode_pool_ranks = range(cfg.prefill_ranks, n)
         self.pools = {r: BlockPool(cfg.blocks_per_rank) for r in range(n)}
@@ -206,6 +210,7 @@ class ContinuousBatchingEngine:
         self.active: list[Request] = []      # admitted, not DONE
         self.done: list[Request] = []
         self.transfer_log: list[dict] = []   # per-batch telemetry
+        self.degradations: list = []         # resilience reports
         self.preemptions = 0
         self._wall0: float | None = None
 
@@ -335,8 +340,11 @@ class ContinuousBatchingEngine:
             moves, self.topo, blocks_per_rank=cfg.blocks_per_rank,
             aggregate=cfg.aggregate, policy=cfg.policy,
             block_bytes=cfg.block_bytes)
-        res = kvtransfer.run_transfer(tp, self.kv, transport=cfg.transport,
-                                      group=self.group)
+        res = kvtransfer.run_transfer(
+            tp, self.kv, transport=cfg.transport, group=self.group,
+            resilience=cfg.resilience, transports=self.transports)
+        if res.report is not None:
+            self.degradations.append(res.report)
         if not kvtransfer.verify_bitwise(tp, self.kv, res):
             raise TransferVerificationError(
                 f"KV transfer batch of {len(moves)} blocks mismatched "
@@ -411,5 +419,5 @@ class ContinuousBatchingEngine:
                 "modeled_s": sum(x["modeled_s"] for x in xfer),
                 "plan_names": sorted({x["plan"] for x in xfer}),
             },
-            "degradations": 0,           # no recovery ladder yet
+            "degradations": len(self.degradations),
         }

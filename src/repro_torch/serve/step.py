@@ -18,9 +18,12 @@ from repro_torch.models import model as M
 @dataclasses.dataclass(frozen=True)
 class ServeOptions:
     use_kernel: bool = False
-    # expert-parallel dispatch and chaos resilience are not yet ported
+    # the explicit expert-parallel dispatch is not yet ported
     # (ROADMAP.md); anything but None raises
     ep_options: object = None
+    # chaos-resilient dispatch collectives: as in the reference, only the
+    # expert-parallel dispatch takes it; these one-device steps run no
+    # collective
     resilience: object = None
 
 
@@ -29,10 +32,8 @@ def _check(opts: ServeOptions) -> None:
         raise NotImplementedError(
             "ep_options: the expert-parallel dispatch is not yet ported "
             "(ROADMAP.md Queue 1 item 10)")
-    if opts.resilience is not None:
-        raise NotImplementedError(
-            "resilience: the recovery ladder is not yet ported (ROADMAP.md "
-            "Queue 1 item 8)")
+    from repro_torch.core.resilient import resolve_resilience
+    resolve_resilience(opts.resilience)     # a bad option fails here
 
 
 def init_serve_cache(cfg, batch: int, max_len: int, *, device=None,

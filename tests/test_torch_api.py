@@ -165,8 +165,8 @@ def test_transport_entry_points_over_the_group(run8):
 
 def test_bad_options_raise_before_any_group_use():
     """No process group exists in this process: a bad transport name,
-    transport="auto", resilience= and a mismatched topology all fail
-    on their own terms, never on the missing group."""
+    transport="auto", a bad resilience= and a mismatched topology all
+    fail on their own terms, never on the missing group."""
     assert not torch.distributed.is_initialized()
     x = torch.zeros(8, 2)
     for fn in (api.mpix_allgather, api.mpix_allreduce,
@@ -175,8 +175,8 @@ def test_bad_options_raise_before_any_group_use():
             fn(x, None, transport="shardmap")
         with pytest.raises(NotImplementedError, match="tuner"):
             fn(x, None, transport="auto")
-        with pytest.raises(NotImplementedError, match="resilience"):
-            fn(x, None, resilience="canary")
+        with pytest.raises(ValueError, match="resilience preset"):
+            fn(x, None, resilience="sideways")
     with pytest.raises(ValueError, match="unknown transport"):
         api.mpix_allreduce_rmsnorm(x, None, torch.ones(2),
                                    transport="pallas")

@@ -270,12 +270,17 @@ def test_unported_modules_raise_not_implemented():
             attention.Attention(attn_cfg, cfg.d_model, device="meta")
     with pytest.raises(NotImplementedError, match="vision"):
         M.Model(dataclasses.replace(cfg, vision_prefix=4), device="meta")
-    for opts in (ServeOptions(ep_options=object()),
-                 ServeOptions(resilience="canary")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_prefill_step(cfg, opts)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_decode_step(cfg, opts)
+    opts = ServeOptions(ep_options=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_prefill_step(cfg, opts)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_decode_step(cfg, opts)
+    # resilience is accepted (it reaches only the expert-parallel
+    # dispatch, as in the reference); a bad option still fails
+    make_prefill_step(cfg, ServeOptions(resilience="canary"))
+    make_decode_step(cfg, ServeOptions(resilience="canary"))
+    with pytest.raises(ValueError, match="resilience preset"):
+        make_decode_step(cfg, ServeOptions(resilience="sideways"))
     with pytest.raises(ValueError, match="does not fit"):
         M.from_state(cfg, {"embed": torch.zeros(1)})
 

@@ -284,8 +284,8 @@ def test_neighbor_options_raise_before_any_group_use():
     x = torch.zeros(4, 2)
     with pytest.raises(ValueError, match="unknown transport"):
         api.mpix_neighbor_alltoallv(x, None, plan, transport="pallas")
-    with pytest.raises(NotImplementedError, match="resilience"):
-        api.mpix_neighbor_alltoallv(x, None, plan, resilience="canary")
+    with pytest.raises(ValueError, match="resilience preset"):
+        api.mpix_neighbor_alltoallv(x, None, plan, resilience="sideways")
     with pytest.raises(NotImplementedError, match="tuner"):
         api.mpix_alltoall_overlap(x, None, lambda c, o, i: c, None,
                                   transport="auto")

@@ -1,6 +1,6 @@
 """The port's continuous-batching engine and KV transfer plans, held
-against the reference (tests/test_serve_engine.py's cases, without the
-resilience ones, which wait for the resilience slice).
+against the reference (tests/test_serve_engine.py's cases), with the
+recovery ladder on the KV path (``serve.chaos_under_load``).
 
 The pools are tensors on the CPU here; the ``kernel`` transport runs the
 transport kernel's plain version.  Every transfer batch is verified by
@@ -206,11 +206,11 @@ class TestTransferPlan:
         pool = torch.zeros(4, 4, 2)
         with pytest.raises(ValueError, match="unknown transport"):
             kvtransfer.run_transfer(tp, pool, transport="pallas")
-        with pytest.raises(NotImplementedError, match="resilience"):
-            kvtransfer.run_transfer(tp, pool, resilience="full")
-        with pytest.raises(NotImplementedError, match="resilience"):
-            ContinuousBatchingEngine(EngineConfig(**SMALL, **CPU,
-                                                  resilience="canary"))
+        with pytest.raises(ValueError, match="resilience preset"):
+            kvtransfer.run_transfer(tp, pool, resilience="sideways")
+        with pytest.raises(ValueError, match="verify must be one of"):
+            ContinuousBatchingEngine(EngineConfig(
+                **SMALL, **CPU, resilience={"verify": "sometimes"}))
         with pytest.raises(ValueError, match="unknown transport"):
             ContinuousBatchingEngine(EngineConfig(**SMALL, device="cpu",
                                                   transport="shardmap"))
@@ -474,3 +474,119 @@ def test_launcher_continuous_rejects_bad_flags():
                 ["--kv-transport", "pallas"], ["--select-policy", "tuned"]):
         with pytest.raises(SystemExit):
             tserve.main(base + bad)
+
+
+# ---------------------------------------------------------------------------
+# the recovery ladder on the KV path
+# ---------------------------------------------------------------------------
+
+
+def _report_key(rep, rename=None):
+    rename = rename or {}
+    return ([(rename.get(a.rung, a.rung), a.algorithm, a.attempt, a.outcome)
+             for a in rep.attempts], list(rep.verdicts),
+            rename.get(rep.recovered_with, rep.recovered_with),
+            rep.refit_algorithm, rep.degraded)
+
+
+@pytest.mark.parametrize("rung", ["sim", "kernel"])
+def test_chaos_under_load_reproduced(rung):
+    """``serve.chaos_under_load`` of BENCH_transport.json: a corrupt
+    campaign armed for the whole trace, every batch verified in full and
+    recovered bitwise (the engine's own oracle check); 40 served, 17
+    plans, 17 reports, 2 degraded — and each report equal to the
+    reference engine's on the same trace (with the plan wrapped round
+    the port's kernel rung, kernel read as sim)."""
+    from repro.core import chaos as jchaos
+    from repro.core.transport import SimTransport as JSimTransport
+
+    from repro_torch.core import chaos
+    from repro_torch.core.transport import KernelTransport, SimTransport
+
+    with open(os.path.join(ROOT, "BENCH_transport.json")) as f:
+        want = json.load(f)["serve"]["chaos_under_load"]
+    jeng = JEngine(JEngineConfig(
+        resilience={"verify": "full", "ladder": ("sim", "reference"),
+                    "backoff_s": 1e-5}),
+        transports={"sim": jchaos.wrap(JSimTransport(8),
+                                       jchaos.FaultPlan(0, "corrupt",
+                                                        times=1))})
+    jm = jrun_workload(jeng, jworkload(1, **TRACE))
+    inner = SimTransport(8) if rung == "sim" else KernelTransport(8)
+    ladder = ("sim", "reference") if rung == "sim" else \
+        ("kernel", "sim", "reference")
+    eng = ContinuousBatchingEngine(
+        EngineConfig(device="cpu", transport=rung, resilience={
+            "verify": "full", "ladder": ladder, "backoff_s": 1e-5}),
+        transports={rung: chaos.wrap(inner, chaos.FaultPlan(
+            0, "corrupt", times=1))})
+    m = run_workload(eng, poisson_workload(1, **TRACE))
+    degraded = sum(1 for r in eng.degradations if r.degraded)
+    got = {"campaign": "corrupt", "seed": 0, "submitted": m["submitted"],
+           "completed": m["completed"], "plans": m["kv_transfer"]["plans"],
+           "reports": len(eng.degradations), "degraded_recovered": degraded,
+           "recovered_bitwise": True}
+    assert got == want
+    assert (m["completed"], m["kv_transfer"]["plans"],
+            len(eng.degradations), degraded) == (40, 17, 17, 2)
+    assert m["degradations"] == 17
+    assert _no_wall(m) == _no_wall(jm)
+    assert eng.kv.numpy().tobytes() == jeng.kv.tobytes()
+    assert [_report_key(r, {"kernel": "sim"}) for r in eng.degradations] \
+        == [_report_key(r) for r in jeng.degradations]
+
+
+def test_run_transfer_carries_its_report():
+    from repro_torch.core.resilient import DegradationReport
+    topo = Topology(8, 4)
+    moves = [kvtransfer.BlockMove(src=s, src_row=r, dst=4 + s, dst_row=r)
+             for s in range(4) for r in range(3)]
+    tp = kvtransfer.build_transfer_plan(moves, topo, blocks_per_rank=8,
+                                        block_bytes=16)
+    pool = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (8, 8, 2, 2)).astype(np.float32))
+    res = kvtransfer.run_transfer(tp, pool, transport="kernel")
+    assert res.report is None
+    res = kvtransfer.run_transfer(tp, pool, transport="kernel",
+                                  resilience="canary")
+    assert isinstance(res.report, DegradationReport)
+    assert res.report.recovered_with == "kernel" and not res.report.degraded
+    assert kvtransfer.verify_bitwise(tp, pool, res)
+    res = kvtransfer.run_transfer(
+        tp, pool, resilience={"verify": "full", "ladder": ("sim",)})
+    assert res.report.recovered_with == "sim"
+    assert kvtransfer.verify_bitwise(tp, pool, res)
+
+
+def test_engine_rejects_bad_resilience():
+    with pytest.raises(ValueError, match="resilience preset"):
+        ContinuousBatchingEngine(EngineConfig(**SMALL, **CPU,
+                                              resilience="sideways"))
+
+
+@pytest.mark.parametrize("transport", ["kernel", "sim"])
+def test_launcher_continuous_resilience(transport, capsys):
+    """``--continuous --resilience canary`` serves every request, with the
+    reference launcher's metrics on the same flags (one report per
+    batch)."""
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as tserve
+    flags = ["--arch", "gemma2-2b", "--smoke", "--continuous",
+             "--requests", "12", "--kv-blocks", "16", "--seed", "2",
+             "--resilience", "canary"]
+    want = jserve.main(flags)
+    got = tserve.main(flags + ["--device", "cpu", "--kv-transport",
+                               transport])
+    assert got["completed"] == got["submitted"] == 12
+    assert got["degradations"] == got["kv_transfer"]["plans"] > 0
+    assert _no_wall(got) == _no_wall(want)
+    out = capsys.readouterr().out
+    assert "12/12 requests" in out
+    assert f"resilience: {got['degradations']} degradation report(s)" in out
+
+
+def test_launcher_resilience_without_continuous_exits():
+    from repro_torch.launch import serve as tserve
+    with pytest.raises(SystemExit, match="nothing to protect"):
+        tserve.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+                     "--resilience", "canary"])
