@@ -88,6 +88,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              f32 a rank: bitwise ``SimTransport.run`` and the monolithic
              shift, bit-identical across P, one launch each (body
              printed), ms beside the bound and ``g.clone()``;
+3t. tuning — the tuner on the card, with a temporary table cache: (a)
+             counters reset, ``tune(flat_topology(8))`` and ``tune(Topology(8,
+             4))`` at ``DEFAULT_SIZES`` on the ``kernel`` substrate (source
+             measured, the fingerprint naming the card, one transport-kernel
+             launch a call: warm-up + 3 repeats of every candidate of every
+             cell, the guideline findings recorded), each cell's measured
+             ms printed beside the model's, the winners unlike the model's
+             counted, each winner bitwise ``SimTransport.run`` on random
+             floats with negative zeros (at its cell's size up to 1 MiB a
+             rank); each table tuned once more, and twice at
+             ``STABLE_REPEATS`` repeats, counting the cells whose winner
+             agrees across the two runs and each cell's runner-up over its
+             best; (b) ``tune_neighbor`` on the KV engine's topology, then
+             phase (k)'s trace with ``policy="tuned"``: 40/40, every batch
+             bitwise, one launch a batch, and each batch's host ms from
+             cold caches under the tuned and the model policy; (c)
+             ``measure_schedule(deadline_s=1e-6)`` raises
+             ``MeasurementTimeout``; (d) a ``TuningDaemon`` (model-timed,
+             ``LinkFault`` DCN beta x16) heals only the affected cells and
+             the healed topology's allreduce runs one launch, bitwise; (e)
+             the launcher with ``--autotune --select-policy tuned`` in a
+             subprocess serves every request;
 3c. launcher — ``python -m repro_torch.launch.serve --arch gemma2-2b
              --continuous --kv-transport kernel`` in a subprocess: exit 0,
              every request served;
@@ -234,6 +256,8 @@ def main() -> int:
     resilience(torch, dev, cases, kv_log, kv_batches)
     partitioned(torch, dev)
     torch.cuda.empty_cache()
+    tuned = tuning(torch, dev, kv_batches)
+    torch.cuda.empty_cache()
     launcher_continuous(torch)
     served = serve_path(torch, dev)
     gathered = gather_path(torch, dev, served)
@@ -248,6 +272,10 @@ def main() -> int:
     transport = next(k for k in kernels if k["name"] == "schedule_exec")
     transport["gather_body"] = gather_row
     transport["global_body"] = global_row
+    # phase (t) counted apart: its launches time the tuner's candidates,
+    # they are not the main path's
+    transport["tuning_launches"] = tuned["launches"]
+    transport["tuning"] = tuned
     kernels += attention_timing(torch, served, gathered, attn_err)
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["cases"].append(jamba_attention_timing(torch, jamba_served,
@@ -1530,6 +1558,290 @@ def partitioned(torch, dev) -> None:
           f"P = 1, 2, 4, 8: each one launch, bitwise SimTransport.run and "
           f"the monolithic shift, bit-identical across P: {'; '.join(rows)}; "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the tuner on the card
+# ---------------------------------------------------------------------------
+
+
+# repeats of the second pair of tunes in phase (t)'s stability check
+STABLE_REPEATS = 30
+
+
+def _winners(table) -> dict:
+    """(winner, runner-up ms / winner ms) of every cell of a table."""
+    out = {}
+    for coll, per in table.entries.items():
+        for b, rec in per.items():
+            t = sorted(rec["times"].values())
+            out[f"{coll}@{b}"] = (rec["best"], t[1] / t[0])
+    return out
+
+
+def _tune_cell_inputs(torch, gen, dev, coll, sched, topo, nbytes):
+    """Random floats with negative zeros in the global buffer the tuner
+    times for one cell (``tuner._probe_spec`` / ``_slot_elems``)."""
+    from repro_torch.core import tuner
+    rows, _ = tuner._probe_spec(coll, topo, nbytes)
+    g = torch.randn((topo.nranks, sched.num_slots,
+                     tuner._slot_elems(coll, topo, rows)), generator=gen,
+                    device=dev)
+    g.view(-1)[::7] = -0.0
+    return g
+
+
+def tuning(torch, dev, kv_batches) -> dict:
+    """(t) The tuner behind ``policy="tuned"`` on the card: measured
+    tables on the transport kernel, tuned KV plans, the measurement
+    deadline, the drift-healing daemon and the launcher's ``--autotune``.
+    The tables go to a temporary cache file, set for this phase only."""
+    import tempfile
+
+    from repro_torch import cuda
+    from repro_torch.core import (api, executor, kernel_lowering, kvtransfer,
+                                  tuner)
+    from repro_torch.core.kernel_lowering import get_kernel_exec
+    from repro_torch.core.linkprobe import model_timer
+    from repro_torch.core.topology import Topology, flat_topology
+    from repro_torch.core.transport import KernelTransport, SimTransport
+    from repro_torch.runtime.fault import LinkFault
+    from repro_torch.runtime.tuning_daemon import TuningDaemon
+    from repro_torch.serve.engine import ContinuousBatchingEngine, \
+        EngineConfig
+    from repro_torch.serve.traffic import poisson_workload, run_workload
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_tuner_")
+    prior = os.environ.get("REPRO_TORCH_TUNER_CACHE")
+    os.environ["REPRO_TORCH_TUNER_CACHE"] = os.path.join(tmp, "cache.json")
+    tuner.clear_cache()
+    card = torch.cuda.get_device_name(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    out = {"launches": 0, "tables": {}}
+    try:
+        # (a) measured tables on the transport kernel
+        for topo in (flat_topology(8), Topology(8, 4)):
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            t1 = time.perf_counter()
+            table = tuner.tune(topo, substrate="kernel")
+            tune_s = time.perf_counter() - t1
+            launches = cuda.LAUNCHES["schedule_exec"]
+            out["launches"] += launches
+            fp = topo.fingerprint(f"{card}.kernel")
+            _require(table.source == "measured" and table.fingerprint == fp
+                     and card.replace(" ", "_") in table.fingerprint,
+                     f"tune on the kernel: {table.source} {table.fingerprint}")
+            calls = sum(len(rec["times"]) for per in table.entries.values()
+                        for rec in per.values())
+            _require(launches == calls * 4 and not any(
+                "xla" in rec["times"] for per in table.entries.values()
+                for rec in per.values()),
+                f"tune: {launches} launches for {calls} candidate cells "
+                f"(want one a call: warm-up + 3 repeats each)")
+            _require(table.violations == tuner.verify_guidelines(table, topo),
+                     "tune: the guideline findings were not recorded")
+            tuner.save_table(table)
+            model = tuner.tune(topo, force_model=True)
+            differ = []
+            for coll, per in table.entries.items():
+                for b in sorted(per, key=int):
+                    rec, mrec = per[b], model.entries[coll][b]
+                    if rec["best"] != mrec["best"]:
+                        differ.append(f"{coll}@{b}")
+                    cells = ", ".join(
+                        f"{k} {v * 1e3:.4f} (model {mrec['times'][k] * 1e3:.4f})"
+                        for k, v in rec["times"].items())
+                    print(f"tuning {fp} {coll} bucket {b} "
+                          f"({rec['nbytes']} B a rank): measured ms "
+                          f"[{cells}]; winner {rec['best']}, model's "
+                          f"{mrec['best']}", flush=True)
+            # each winner's output, bitwise the numpy oracle (at the
+            # cell's size, up to 1 MiB a rank: the oracle runs on the host)
+            checked = set()
+            for coll, per in table.entries.items():
+                for b, rec in per.items():
+                    sched = api._schedule(coll, rec["best"], topo)
+                    g = _tune_cell_inputs(torch, gen, dev, coll, sched, topo,
+                                          min(rec["nbytes"], MIB))
+                    got = KernelTransport(8, topo=topo).run_global(sched, g)
+                    want = SimTransport(8, topo=topo).run(
+                        sched, g.cpu().numpy())
+                    _require(_np_bits(got).tobytes()
+                             == want.view(np.int32).tobytes(),
+                             f"tune winner {coll}.{rec['best']} @{b}: kernel "
+                             f"!= SimTransport.run")
+                    checked.add((coll, b))
+                    del g, got
+            # do the winners survive a second run?  (at 3 repeats: this
+            # table against one more; then two at STABLE_REPEATS)
+            stable = {}
+            for repeats, runs in ((3, [table]), (STABLE_REPEATS, [])):
+                while len(runs) < 2:
+                    cuda.reset_launches()
+                    runs.append(tuner.tune(topo, substrate="kernel",
+                                           repeats=repeats))
+                    out["launches"] += cuda.LAUNCHES["schedule_exec"]
+                a, b = (_winners(t) for t in runs)
+                same = [c for c in a if a[c][0] == b[c][0]]
+                margins = [a[c][1] for c in a] + [b[c][1] for c in b]
+                stable[repeats] = {
+                    "agree": len(same), "cells": len(a),
+                    "margin_median": statistics.median(margins),
+                    "margin_max": max(margins)}
+                print(f"tuning {fp} stability at {repeats} repeats: "
+                      f"winners agree across two runs in {len(same)} of "
+                      f"{len(a)} cells; runner-up / best median "
+                      f"{statistics.median(margins):.4f}, max "
+                      f"{max(margins):.4f}", flush=True)
+            out["tables"][topo.fingerprint()] = {
+                "tune_s": tune_s, "launches": launches,
+                "winners_differ": differ, "violations": table.violations,
+                "stable": stable}
+            print(f"tuning {fp}: tune {tune_s:.2f} s, {launches} launches "
+                  f"(one a call), source {table.source}, {len(checked)} "
+                  f"winners bitwise SimTransport.run, winners unlike the "
+                  f"model's in {len(differ)} of {len(checked)} cells "
+                  f"{differ}; guideline findings "
+                  f"{len(table.violations)}: {table.violations}", flush=True)
+
+        # (b) tuned neighbor plans on the KV engine's topology
+        ecfg = EngineConfig(**KV_CONFIG, transport="kernel", device="cuda",
+                            policy="tuned")
+        topo = ecfg.topology()
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        table = tuner.load_table(tuner.substrate_fingerprint(
+            topo, substrate="kernel"))
+        table.entries[tuner.NEIGHBOR] = tuner.tune_neighbor(
+            topo, substrate="kernel")
+        tuner.save_table(table)
+        out["launches"] += cuda.LAUNCHES["schedule_exec"]
+        nb = table.entries[tuner.NEIGHBOR]
+        print(f"tuning neighbor {table.fingerprint}: " + "; ".join(
+            f"bucket {b}: " + ", ".join(f"{k} {v * 1e3:.4f} ms"
+                                        for k, v in nb[b]["times"].items())
+            + f" -> {nb[b]['best']}" for b in sorted(nb, key=int)),
+            flush=True)
+        eng = ContinuousBatchingEngine(ecfg)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        m = run_workload(eng, poisson_workload(0, **KV_TRACE))
+        torch.cuda.synchronize()
+        launches = cuda.LAUNCHES["schedule_exec"]
+        out["launches"] += launches
+        kv = m["kv_transfer"]
+        _require(m["completed"] == m["submitted"] == KV_TRACE["n_requests"],
+                 "tuned kv: not every request completed")
+        _require(launches == kv["plans"] == len(kv_batches),
+                 f"tuned kv: {launches} launches for {kv['plans']} batches")
+        log = [{k: v for k, v in x.items() if k != "seconds"}
+               for x in eng.transfer_log]
+        del eng
+        torch.cuda.empty_cache()
+        # each batch's host cost from cold caches under either policy
+        host = {"model": [], "tuned": []}
+        for x in log:
+            for policy in host:
+                executor.clear_cache()
+                kernel_lowering.clear_cache()
+                h0 = time.perf_counter()
+                tp = kvtransfer.build_transfer_plan(
+                    list(x["moves"]), topo,
+                    blocks_per_rank=KV_CONFIG["blocks_per_rank"],
+                    block_bytes=ecfg.block_bytes, policy=policy)
+                kex = get_kernel_exec(tp.schedule, topo=topo)
+                if kex.plan(4, KV_CONFIG["block_tokens"]
+                            * KV_CONFIG["block_feat"])[0] == "gather":
+                    kernel_lowering.gather_tables(kex.ex)
+                host[policy].append((time.perf_counter() - h0) * 1e3)
+        phase_k = [b["host_ms"] for b in kv_batches]
+        out["kv"] = {"plans": kv["plan_names"], "host_ms": host,
+                     "phase_k_host_ms": phase_k}
+        print(f"tuning kv: {m['completed']}/{m['submitted']} served with "
+              f"policy tuned, every batch bitwise (the engine's check), one "
+              f"launch a batch ({launches}), plans {kv['plan_names']}; host "
+              f"ms a batch from cold caches: tuned "
+              f"{statistics.median(host['tuned']):.2f} median "
+              f"({min(host['tuned']):.2f}-{max(host['tuned']):.2f}), model "
+              f"{statistics.median(host['model']):.2f} median "
+              f"({min(host['model']):.2f}-{max(host['model']):.2f}) in the "
+              f"same loop, phase (k)'s {statistics.median(phase_k):.2f} "
+              f"median", flush=True)
+
+        # (c) the measurement deadline
+        sched = api._schedule("allreduce", "ring_rs_ag", topo)
+        try:
+            tuner.measure_schedule(sched, topo, slot_elems=1024,
+                                   deadline_s=1e-6, substrate="kernel")
+            raise RuntimeError("measure_schedule(deadline_s=1e-6) returned")
+        except tuner.MeasurementTimeout as e:
+            print(f"tuning deadline: MeasurementTimeout ({e})", flush=True)
+        torch.cuda.synchronize()
+
+        # (d) the daemon heals a DCN collapse, scoped; the healed topology
+        # runs on the kernel
+        fault = LinkFault()
+        d = TuningDaemon(Topology(8, 4), path=os.path.join(tmp, "d.json"),
+                         force_model=True, timer=model_timer(
+                             Topology(8, 4), fault=fault), repeats=1)
+        fault.degrade(0, beta_scale=16.0)
+        rep = d.probe_and_heal(step=1)
+        _require(rep.drifted_levels == (0,) and 0 < len(rep.affected_cells)
+                 < rep.total_cells and rep.retuned_cells,
+                 f"daemon: {rep}")
+        nbytes = 1 << 22
+        algo = tuner.tuned_select("allreduce", d.topo, nbytes, table=d.table)
+        sched = api._schedule("allreduce", algo, d.topo)
+        g = _tune_cell_inputs(torch, gen, dev, "allreduce", sched, d.topo,
+                              nbytes)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        got = KernelTransport(8, topo=d.topo).run_global(sched, g)
+        torch.cuda.synchronize()
+        out["launches"] += cuda.LAUNCHES["schedule_exec"]
+        _require(cuda.LAUNCHES["schedule_exec"] == 1, "daemon: not 1 launch")
+        want = SimTransport(8, topo=d.topo).run(sched, g.cpu().numpy())
+        _require(_np_bits(got).tobytes() == want.view(np.int32).tobytes(),
+                 "daemon: the healed allreduce != SimTransport.run")
+        print(f"tuning daemon: DCN beta x16 -> drifted {rep.drifted_levels}, "
+              f"{len(rep.affected_cells)}/{rep.total_cells} cells affected, "
+              f"{len(rep.retuned_cells)} re-measured, generation "
+              f"{rep.generation}, evicted {rep.invalidated}; allreduce.{algo} "
+              f"on {d.topo.fingerprint()} one launch, bitwise", flush=True)
+        del g, got
+
+        # (e) the launcher's --autotune
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               "gemma2-2b", "--continuous", "--kv-transport", "kernel",
+               "--autotune", "--select-policy", "tuned"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_TORCH_TUNER_CACHE=os.path.join(tmp, "launch.json"))
+        t1 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=300)
+        print(res.stdout.strip(), flush=True)
+        _require(res.returncode == 0,
+                 f"launcher --autotune exited {res.returncode}: "
+                 f"{res.stderr[-2000:]}")
+        served = [ln for ln in res.stdout.splitlines()
+                  if ln.startswith("continuous: ")]
+        _require(bool(served), "launcher --autotune printed no summary")
+        done, submitted = served[0].split()[1].split("/")
+        _require(done == submitted, f"launcher served {done}/{submitted}")
+        print(f"tuning launcher: {' '.join(cmd[1:])}: {done}/{submitted} "
+              f"served, {time.perf_counter() - t1:.2f} s", flush=True)
+    finally:
+        if prior is None:
+            os.environ.pop("REPRO_TORCH_TUNER_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_TUNER_CACHE"] = prior
+        tuner.clear_cache()
+    print(f"tuning: phase {time.perf_counter() - t0:.2f} s, "
+          f"{out['launches']} transport-kernel launches", flush=True)
+    return out
 
 
 def launcher_continuous(torch) -> None:

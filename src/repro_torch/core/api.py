@@ -16,7 +16,9 @@ persistent ``CommSchedule`` executed by a transport:
 
   * ``transport="dist"``   — one ``batch_isend_irecv`` per compiled round;
   * ``transport="kernel"`` — one ``all_gather`` and the whole schedule as
-    one CUDA kernel (its plain version on CPU tensors).
+    one CUDA kernel (its plain version on CPU tensors);
+  * ``transport="auto"``   — the tuner's ``transport`` cell prices the
+    two per size bucket (``tuner.select_transport``).
 
 Schedules are built once per (collective, algorithm, topology) and
 cached, and execute through the process-level compiled-executor cache
@@ -27,7 +29,8 @@ cached, and execute through the process-level compiled-executor cache
 ``_execute``); ``set_chaos(plan)`` wraps every transport the API builds
 with a seeded ``core.chaos.FaultPlan`` (tests), and
 ``take_degradations()`` drains the reports of calls that needed the
-ladder.
+ladder.  ``ensure_tuned(topo)`` loads (tuning once if missing) the
+empirical table behind ``policy="tuned"`` and makes it the default.
 """
 from __future__ import annotations
 
@@ -66,16 +69,19 @@ def _schedule(collective: str, algorithm: str, topo: Topology):
 
 
 def invalidate_topology(topo: Topology | str) -> dict:
-    """Scoped cache eviction for one geometry: drop the cached plans
-    built against ``topo`` (a ``Topology`` or its fingerprint string)
-    and the compiled executors armed with its fingerprint.  Returns
-    ``{"plans": n, "executors": m}`` eviction counts."""
-    from repro_torch.core import executor
+    """Scoped cache eviction for one geometry (drift heal / elastic
+    swap): drop the cached plans built against ``topo`` (a ``Topology``
+    or its fingerprint string), the compiled executors armed with its
+    fingerprint and their lowered kernel executors (whose tables live
+    on the card).  Plans and executors for every other geometry are
+    untouched.  Returns ``{"plans": n, "executors": m}`` eviction
+    counts."""
+    from repro_torch.core import executor, kernel_lowering
     fp = topo if isinstance(topo, str) else topo.fingerprint()
-    doomed = [k for k in _SCHEDULES if k[2].fingerprint() == fp]
-    for k in doomed:
-        del _SCHEDULES[k]
-    return {"plans": len(doomed),
+    doomed = [k for k in tuple(_SCHEDULES) if k[2].fingerprint() == fp]
+    plans = sum(_SCHEDULES.pop(k, None) is not None for k in doomed)
+    kernel_lowering.invalidate_topology(fp)
+    return {"plans": plans,
             "executors": executor.invalidate_topology(fp)}
 
 
@@ -93,8 +99,8 @@ def clear_executor_cache() -> None:
 
 
 # Selection policy used when algorithm="auto" and no per-call ``policy=``
-# is given: "fixed" (paper defaults) or "model" (alpha-beta argmin);
-# "tuned" raises until the tuner is ported.
+# is given: "fixed" (paper defaults), "model" (alpha-beta argmin) or
+# "tuned" (persisted empirical table; see repro_torch.core.tuner).
 _DEFAULT_POLICY = "model"
 
 
@@ -111,9 +117,29 @@ def get_default_policy() -> str:
     return _DEFAULT_POLICY
 
 
-# Transport substrates selectable per call.  "auto" (the tuner's
-# transport policy cell) is a known name that raises until the tuner is
-# ported.
+def ensure_tuned(topo: Topology, *, path=None, heal: bool = True,
+                 set_policy: bool = True, **tune_kwargs):
+    """Init-time entry for ``policy="tuned"`` (persistent-MPI style).
+
+    Loads (tuning once if missing) the empirical table for ``topo``'s
+    substrate; with ``heal=True`` any performance-guideline violation in
+    a cached table triggers a scoped re-measure of only the offending
+    (collective, size-bucket) cells and persists a bumped generation —
+    see ``tuner.ensure_table``.  With ``set_policy=True`` the process
+    default policy flips to "tuned", so every later ``algorithm="auto"``
+    collective resolves from the (healed) table.  Returns the table.
+    """
+    from repro_torch.core import tuner  # local: avoid import cycle
+    table = tuner.ensure_table(topo, path=path, heal=heal, **tune_kwargs)
+    if set_policy:
+        set_default_policy("tuned")
+    return table
+
+
+# Transport substrates selectable per call: "dist" (one exchange per
+# compiled round), "kernel" (the whole schedule as one kernel launch),
+# or "auto" (the tuner's ``transport`` policy cell prices the two per
+# size bucket).
 TRANSPORTS = ("dist", "kernel", "auto")
 
 
@@ -124,11 +150,18 @@ def _check_call(transport: str, resilience) -> None:
     if transport not in TRANSPORTS:
         raise ValueError(f"unknown transport {transport!r}; "
                          f"expected one of {TRANSPORTS}")
-    if transport == "auto":
-        raise NotImplementedError(
-            "transport='auto' needs the tuner's transport policy, which "
-            "is ported with the tuner slice")
     resolve_resilience(resilience)
+
+
+def _resolve_transport(transport: str, topo: Topology, nbytes: int,
+                       policy: str | None = None) -> str:
+    """A concrete substrate for ``transport`` ("auto": the tuner's
+    choice for this topology and payload under the policy)."""
+    if transport == "auto":
+        from repro_torch.core import tuner  # local: avoid import cycle
+        transport = tuner.select_transport(
+            topo, nbytes, policy=policy or _DEFAULT_POLICY)
+    return transport
 
 
 def _group_topology(group, topo: Topology | None) -> tuple[int, Topology]:
@@ -183,13 +216,15 @@ def take_degradations() -> list:
 
 
 def _execute(collective: str, run, *, algorithm: str, transport: str,
-             resilience, xla_ok: bool = True):
+             resilience, topo: Topology, nbytes: int, policy=None,
+             xla_ok: bool = True):
     """Shared execution path of every mpix_* collective.
 
     ``run(kind, algo)`` closes over the collective's buffers and does
     one full attempt on transport ``kind`` ("dist"/"kernel", or the
-    native collective when ``algo == "xla"``).  Without ``resilience``
-    this is a zero-overhead passthrough.  With it, the recovery ladder
+    native collective when ``algo == "xla"``); ``transport="auto"`` is
+    resolved here, per call, from ``topo`` and ``nbytes``.  Without
+    ``resilience`` this is a zero-overhead passthrough.  With it, the recovery ladder
     runs: detected faults — a raised ``TransportError`` (a failed dist
     round, an injected chaos failure), a ``NotApplicable`` refit miss,
     or a wall-clock deadline overrun — are retried with exponential
@@ -209,6 +244,7 @@ def _execute(collective: str, run, *, algorithm: str, transport: str,
     opts = resolve_resilience(resilience)
     if algorithm == "xla":
         return run("xla", "xla")
+    transport = _resolve_transport(transport, topo, nbytes, policy)
     if opts is None:
         return run(transport, algorithm)
 
@@ -329,7 +365,8 @@ def mpix_allgather(x: torch.Tensor, group=None, *, algorithm: str = "auto",
     return _execute("allgather", run,
                     algorithm=_algorithm("allgather", algorithm, policy,
                                          topo, nbytes),
-                    transport=transport, resilience=resilience)
+                    transport=transport, resilience=resilience,
+                    topo=topo, nbytes=nbytes, policy=policy)
 
 
 def mpix_allreduce(x: torch.Tensor, group=None, *, algorithm: str = "auto",
@@ -355,7 +392,8 @@ def mpix_allreduce(x: torch.Tensor, group=None, *, algorithm: str = "auto",
     return _execute("allreduce", run,
                     algorithm=_algorithm("allreduce", algorithm, policy,
                                          topo, nbytes),
-                    transport=transport, resilience=resilience)
+                    transport=transport, resilience=resilience,
+                    topo=topo, nbytes=nbytes, policy=policy)
 
 
 def mpix_reduce_scatter(x: torch.Tensor, group=None, *,
@@ -390,7 +428,8 @@ def mpix_reduce_scatter(x: torch.Tensor, group=None, *,
     return _execute("reduce_scatter", run,
                     algorithm=_algorithm("reduce_scatter", algorithm, policy,
                                          topo, nbytes),
-                    transport=transport, resilience=resilience)
+                    transport=transport, resilience=resilience,
+                    topo=topo, nbytes=nbytes, policy=policy)
 
 
 def _alltoall_blocks(x: torch.Tensor, sched, n: int, rows: int):
@@ -433,7 +472,8 @@ def mpix_alltoall(x: torch.Tensor, group=None, *, algorithm: str = "auto",
     return _execute("alltoall", run,
                     algorithm=_algorithm("alltoall", algorithm, policy,
                                          topo, nbytes),
-                    transport=transport, resilience=resilience)
+                    transport=transport, resilience=resilience,
+                    topo=topo, nbytes=nbytes, policy=policy)
 
 
 def mpix_alltoall_overlap(x: torch.Tensor, group, consume, init, *,
@@ -510,7 +550,8 @@ def mpix_alltoall_overlap(x: torch.Tensor, group, consume, init, *,
     return _execute("alltoall", run,
                     algorithm=_algorithm("alltoall", algorithm, policy,
                                          topo, nbytes),
-                    transport=transport, resilience=resilience)
+                    transport=transport, resilience=resilience,
+                    topo=topo, nbytes=nbytes, policy=policy)
 
 
 # ---------------------------------------------------------------------------
@@ -553,6 +594,7 @@ def mpix_neighbor_alltoallv(x: torch.Tensor, group, plan, *,
 
     return _execute("neighbor_alltoallv", run, algorithm=plan.name,
                     transport=transport, resilience=resilience,
+                    topo=plan.topo, nbytes=x.numel() * x.element_size(),
                     xla_ok=False)
 
 
@@ -584,6 +626,8 @@ def mpix_allreduce_rmsnorm(x: torch.Tensor, group, scale: torch.Tensor, *,
     _check_call(transport, resilience)
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     _, topo = _group_topology(group, topo)
+    transport = _resolve_transport(
+        transport, topo, x.numel() * x.element_size(), policy)
     if transport == "kernel":
         try:
             parts = x.new_empty((topo.nranks,) + tuple(x.shape))
@@ -610,7 +654,8 @@ __all__ = [
     "mpix_allgather", "mpix_allreduce", "mpix_reduce_scatter",
     "mpix_alltoall", "mpix_alltoall_overlap", "mpix_allreduce_rmsnorm",
     "mpix_neighbor_alltoallv", "make_neighbor_plan",
-    "set_default_policy", "get_default_policy", "executor_cache_stats",
+    "set_default_policy", "get_default_policy", "ensure_tuned",
+    "executor_cache_stats",
     "clear_executor_cache", "invalidate_topology", "TRANSPORTS",
     "set_chaos", "get_chaos", "last_degradation", "take_degradations",
     "UnrecoverableError", "DegradationReport",

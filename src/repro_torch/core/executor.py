@@ -1071,10 +1071,10 @@ def invalidate_topology(fingerprint: str | None) -> int:
     ones, key slot ``None``) keep their baked tables.
     Pass ``None`` to evict the topology-free entries instead.
     """
-    doomed = [k for k in _CACHE if k[3] == fingerprint]
-    for k in doomed:
-        del _CACHE[k]
-    return len(doomed)
+    # a snapshot of the keys: a healing daemon's thread evicts while the
+    # serving thread may be inserting
+    doomed = [k for k in tuple(_CACHE) if k[3] == fingerprint]
+    return sum(_CACHE.pop(k, None) is not None for k in doomed)
 
 
 def cache_stats() -> dict:

@@ -584,3 +584,11 @@ def get_kernel_exec(schedule: CommSchedule, *,
 def clear_cache() -> None:
     """Drop every lowered kernel executor (tests; after env flips)."""
     _CACHE.clear()
+
+
+def invalidate_topology(fingerprint: str | None) -> int:
+    """Scoped eviction, as ``executor.invalidate_topology``: drop the
+    lowered executors (and the device tables they hold) armed with the
+    given topology fingerprint; returns how many were dropped."""
+    doomed = [k for k in tuple(_CACHE) if k[3] == fingerprint]
+    return sum(_CACHE.pop(k, None) is not None for k in doomed)

@@ -26,8 +26,8 @@ Two build modes:
       C) intra-pod: the receiving aggregator fans values out to final
          destinations (duplication happens on fast intra-pod links only).
     Intra-pod graph edges bypass the aggregators (direct, colored).
-  * ``aggregate=None``  — select per policy (fixed / model, see
-    selector.select_neighbor; "tuned" needs the tuner, not yet ported).
+  * ``aggregate=None``  — select per policy (fixed / model / tuned, see
+    selector.select_neighbor).
 
 Both modes land received values in an identical recv layout (segments
 ordered by source rank), so they are drop-in interchangeable — the
@@ -227,7 +227,8 @@ def build_plan(graph: CommGraph, topo: Topology, *,
 
     ``aggregate=None`` resolves the standard-vs-locality-aware choice
     through the selection policy ladder (``policy=None`` uses the
-    process default; ``"tuned"`` raises until the tuner is ported).
+    process default; ``"tuned"`` reads ``tuner.autotune``'s persisted
+    winner for this topology and exchange volume).
     """
     n = graph.nranks
     assert topo.nranks == n

@@ -8,9 +8,10 @@ three rungs of that ladder:
   * ``select(..., policy="model")``   — alpha-beta-model-driven argmin over
     every registered schedule (the future-work selector), using the exact
     per-round link accounting of ``Schedule.modeled_time``.
-  * ``select(..., policy="tuned")``   — empirical per-size-bucket
-    winners from the tuner, which this port does not have yet: the
-    policy raises ``NotImplementedError`` until the tuner slice lands.
+  * ``select(..., policy="tuned")``   — empirical: per-(collective,
+    topology, size-bucket) winners measured on a live substrate and
+    persisted by ``repro_torch.core.tuner``, keyed by a substrate
+    fingerprint.  Falls back to the model argmin when no table matches.
 
 The selection is made at trace time (static shapes), so it costs nothing
 at run time — the chosen schedule is baked into the compiled program,
@@ -66,22 +67,24 @@ def select(collective: str, topo: Topology, nbytes: int,
             return "staged"
         return hier if topo.npods > 1 else flat
     if policy == "tuned":
-        raise NotImplementedError(
-            "select(policy='tuned') needs the empirical tuner, which is "
-            "ported with the tuner/plan slice")
+        from repro_torch.core import tuner  # local: avoid import cycle
+        name = tuner.tuned_select(collective, topo, int(nbytes),
+                                  table=tuned_table)
+        if name is not None:
+            return name
+        # no persisted table for this substrate: model argmin fallback
     return _model_select(collective, topo, int(nbytes))
 
 
 def resolve_neighbor_mode(graph, topo: Topology, *,
                           policy: str | None = None, tuned_table=None,
                           elem_bytes: int = 4) -> str | None:
-    """Cheap half of the neighbor mode choice: resolve from the policy
-    alone, WITHOUT compiling any plan.  Returns None when the decision
-    needs the alpha-beta model comparison of both compiled plans (the
-    caller — ``build_plan`` — already has to build the winner, so it
-    builds both and compares, instead of this layer compiling and
-    discarding them).  The "tuned" policy raises until the tuner is
-    ported."""
+    """Cheap half of the neighbor mode choice: resolve from policy and
+    persisted tables alone, WITHOUT compiling any plan.  Returns None
+    when the decision needs the alpha-beta model comparison of both
+    compiled plans (the caller — ``build_plan`` — already has to build
+    the winner, so it builds both and compares, instead of this layer
+    compiling and discarding them)."""
     if policy is None:
         from repro_torch.core import api  # local: avoid import cycle
         policy = api.get_default_policy()
@@ -93,9 +96,12 @@ def resolve_neighbor_mode(graph, topo: Topology, *,
     if policy == "fixed":
         return "locality_aware"
     if policy == "tuned":
-        raise NotImplementedError(
-            "the 'tuned' neighbor mode needs the empirical tuner, which "
-            "is ported with the tuning slice")
+        from repro_torch.core import tuner
+        nbytes = graph.total_values() * elem_bytes
+        name = tuner.tuned_select(NEIGHBOR, topo, int(nbytes),
+                                  table=tuned_table)
+        if name in NEIGHBOR_MODES:
+            return name
     return None
 
 
@@ -104,9 +110,10 @@ def select_neighbor(graph, topo: Topology, *, policy: str | None = None,
     """Standard-vs-locality-aware choice for a neighborhood exchange.
 
     Same policy ladder as ``select``: "fixed" is the paper default
-    (aggregate whenever the topology is multi-pod), "model" compares the
-    alpha-beta times of both compiled plans.  ``policy=None`` uses the
-    process-wide default policy.
+    (aggregate whenever the topology is multi-pod), "tuned" reads the
+    winner ``tuner.autotune`` persisted for this substrate and exchange
+    volume, "model" compares the alpha-beta times of both compiled
+    plans.  ``policy=None`` uses the process-wide default policy.
     """
     mode = resolve_neighbor_mode(graph, topo, policy=policy,
                                  tuned_table=tuned_table,

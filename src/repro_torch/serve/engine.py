@@ -147,6 +147,11 @@ class EngineConfig:
     aggregate: bool | None = None  # None = selection policy ladder
     policy: str | None = None
     device: str = "cuda"         # where the block pool lives
+    # the geometry the plans are built on when it is not the default
+    # ``Topology(n, ranks_per_pod)``: a probed or healed topology (link
+    # models fitted by ``core.linkprobe``), whose fingerprint keys the
+    # tuned table ``policy="tuned"`` reads
+    topo: Topology | None = None
 
     def topology(self) -> Topology:
         n = self.prefill_ranks + self.decode_ranks
@@ -154,7 +159,14 @@ class EngineConfig:
             raise ValueError(
                 f"prefill+decode ranks ({n}) must tile ranks_per_pod "
                 f"({self.ranks_per_pod})")
-        return Topology(n, self.ranks_per_pod)
+        if self.topo is None:
+            return Topology(n, self.ranks_per_pod)
+        if (self.topo.nranks, self.topo.ranks_per_pod) != (
+                n, self.ranks_per_pod):
+            raise ValueError(
+                f"topo {self.topo.fingerprint()} is not {n} ranks in pods "
+                f"of {self.ranks_per_pod}")
+        return self.topo
 
     @property
     def block_bytes(self) -> int:

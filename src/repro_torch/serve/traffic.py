@@ -56,12 +56,14 @@ def poisson_workload(seed: int = 0, *, arrival_rate: float = 4.0,
 
 def run_workload(engine: ContinuousBatchingEngine,
                  requests: list[Request], *, dt: float = 0.05,
-                 max_steps: int = 50_000) -> dict:
+                 max_steps: int = 50_000, on_step=None) -> dict:
     """Drive the engine through a trace; returns ``engine.metrics()``.
 
     One engine tick per ``dt`` of virtual time; raises ``EngineStall``
     when the engine stops making progress with no arrivals left to
     unblock it (a decode pool too small for the workload).
+    ``on_step(step)``, when given, runs after every tick (the launcher's
+    drift-healing heartbeat).
     """
     pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
     vt, idle = 0.0, 0
@@ -72,6 +74,8 @@ def run_workload(engine: ContinuousBatchingEngine,
         before = (len(engine.done),
                   sum(len(r.tokens) for r in engine.active))
         engine.step()
+        if on_step is not None:
+            on_step(engine.step_count)
         after = (len(engine.done),
                  sum(len(r.tokens) for r in engine.active))
         idle = 0 if after != before or pending else idle + 1

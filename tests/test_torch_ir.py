@@ -158,17 +158,25 @@ def test_selector_matches_reference_per_size_bucket(policy, topo_name):
                 coll, nbytes)
 
 
-def test_selector_tuned_and_neighbor_raise_until_ported():
-    """"tuned" raises until the tuner is ported, for the dense
-    collectives and for the neighbor mode of a multi-pod topology (the
-    neighbor plans themselves are ported: tests/test_torch_plan.py)."""
+def test_selector_tuned_and_neighbor_raise_until_ported(tmp_path,
+                                                         monkeypatch):
+    """The tuner is ported: "tuned" no longer raises.  With no persisted
+    table it falls back to the model's choice, for the dense collectives
+    and for the neighbor mode of a multi-pod topology (the tables
+    themselves: tests/test_torch_tuner.py); an unknown policy still
+    raises."""
+    from repro_torch.core import tuner
     from repro_torch.core.plan import CommGraph
-    with pytest.raises(NotImplementedError, match="tuner"):
-        selector.select("allreduce", flat_topology(8), 1024, policy="tuned")
+    monkeypatch.setenv("REPRO_TORCH_TUNER_CACHE", str(tmp_path / "t.json"))
+    tuner.clear_cache()
+    assert selector.select("allreduce", flat_topology(8), 1024,
+                           policy="tuned") == selector.select(
+        "allreduce", flat_topology(8), 1024, policy="model")
     graph = CommGraph.random(8, n_local=4, degree=3,
                              rng=np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="tuner"):
-        selector.select_neighbor(graph, Topology(8, 4), policy="tuned")
+    assert selector.select_neighbor(graph, Topology(8, 4), policy="tuned") \
+        == selector.select_neighbor(graph, Topology(8, 4), policy="model")
+    tuner.clear_cache()
     with pytest.raises(ValueError, match="policy"):
         selector.select("allreduce", flat_topology(8), 1024, policy="nope")
 

@@ -286,9 +286,15 @@ def test_neighbor_options_raise_before_any_group_use():
         api.mpix_neighbor_alltoallv(x, None, plan, transport="pallas")
     with pytest.raises(ValueError, match="resilience preset"):
         api.mpix_neighbor_alltoallv(x, None, plan, resilience="sideways")
-    with pytest.raises(NotImplementedError, match="tuner"):
+    # transport="auto" and the tuned chunk count are ported: the first
+    # reaches the missing group, the second falls back to the model
+    # without a table
+    with pytest.raises(ValueError, match="process group"):
         api.mpix_alltoall_overlap(x, None, lambda c, o, i: c, None,
                                   transport="auto")
-    with pytest.raises(NotImplementedError, match="tuner"):
-        ttuner.select_overlap_chunks(Topology(8, 4), 1024, 0.0,
-                                     policy="tuned")
+    ttuner.clear_cache()
+    assert ttuner.select_overlap_chunks(
+        Topology(8, 4), 1024, 0.0, policy="tuned",
+        path="/nonexistent/tuned.json") == ttuner.select_overlap_chunks(
+            Topology(8, 4), 1024, 0.0, policy="model")
+    ttuner.clear_cache()

@@ -205,13 +205,28 @@ def test_select_neighbor_matches_reference(n, rpp, policy):
             assert want == got, (seed, eb)
 
 
-def test_select_neighbor_tuned_raises_until_the_tuner():
-    _, tg = _graphs(8, 0)
-    with pytest.raises(NotImplementedError, match="tuner"):
-        tselector.select_neighbor(tg, Topology(8, 4), policy="tuned")
-    # one pod: both modes compile identically, no tuner needed
+def test_select_neighbor_tuned_raises_until_the_tuner(tmp_path,
+                                                       monkeypatch):
+    """The tuner is ported: the tuned mode no longer raises.  With no
+    persisted table it is the model's choice, as the reference's; one
+    pod needs no table (both modes compile identically)."""
+    from repro.core import tuner as jtuner
+    from repro_torch.core import tuner as ttuner
+
+    monkeypatch.setenv("REPRO_TUNER_CACHE", str(tmp_path / "j.json"))
+    monkeypatch.setenv("REPRO_TORCH_TUNER_CACHE", str(tmp_path / "t.json"))
+    ttuner.clear_cache()
+    jtuner.clear_cache()
+    jg, tg = _graphs(8, 0)
+    got = tselector.select_neighbor(tg, Topology(8, 4), policy="tuned")
+    assert got == tselector.select_neighbor(tg, Topology(8, 4),
+                                            policy="model")
+    assert got == jselector.select_neighbor(jg, JTopology(8, 4),
+                                            policy="tuned")
     assert tselector.select_neighbor(tg, Topology(8, 8),
                                      policy="tuned") == "standard"
+    ttuner.clear_cache()
+    jtuner.clear_cache()
 
 
 def test_plan_build_is_deterministic():

@@ -471,7 +471,8 @@ def test_launcher_continuous_rejects_bad_flags():
             "cpu"]
     for bad in (["--arrival-rate", "0"], ["--tenants", "0"],
                 ["--requests", "0"], ["--kv-blocks", "0"],
-                ["--kv-transport", "pallas"], ["--select-policy", "tuned"]):
+                ["--kv-transport", "pallas"], ["--select-policy", "fastest"],
+                ["--probe-links"], ["--heal-interval", "-1"]):
         with pytest.raises(SystemExit):
             tserve.main(base + bad)
 
