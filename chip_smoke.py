@@ -167,6 +167,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              weights widened to f32 at batch 1, where the teacher-forced
              decode logits must match the kernel prefill's at the
              reference's model tolerance;
+6m-6w. the remaining archs, each after the previous model is freed:
+             moonshot-v1-16b-a3b whole (48 layers, 64 experts, sigmoid
+             routing, 2 shared experts; 56.1 GB), deepseek-v3-671b's
+             one-card cut (layers 0-3: three MLA+MLP and one MLA+MoE,
+             experts 0-7 of 256; 8.38 GB), qwen2-vl-7b whole (M-RoPE, a
+             256-row vision prefix; 15.2 GB) and whisper-small whole
+             (encoder and decoder; 0.48 GB), random bf16 weights from a
+             seeded generator on the card: (a) counters reset, the
+             kernel prefill of one prompt (8192 tokens; qwen2-vl's with
+             seeded patch embeddings in its leading 256 rows; whisper
+             batch 8 of 256 tokens over 1500 seeded frames), counters
+             read (48 / 4 / 28 / 12 flash launches, all on the wgmma
+             body), each layer's kernel output held within 2e-2 of its
+             plain core on the same q/k/v (MLA: the plain ``_attend`` on
+             the same latents) and, over its last quarter of rows,
+             within 1e-2 (rms) and 0.125 (max) of those rows' rms, the
+             logits reported against the plain prefill beside a witness
+             (the plain prefill again, its attention cores' P V in f32:
+             rounding alone) and, for the MoE archs, the share of tokens
+             whose experts differ at each MoE layer, the prefill timed
+             alone; (b) the launcher's loop at
+             batch 4, prompt 32, gen 16 in bf16 (reported); (c) the
+             weights widened to f32 (moonshot: layers 0-2) at batch 1,
+             where the teacher-forced decode logits must match the
+             kernel prefill's at the reference's model tolerance;
 7. timing  — per case, the kernel, its plain version and a library
              call: CUDA events around 20 calls enqueued back to back,
              divided by 20, median of 5 such batches (after warm-up;
@@ -182,7 +207,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              per SM on the special-function units, at the card's top SM
              clock); for attention also the TFLOP/s, the share of the
              bound and the k/v bytes the body's tiling reads (from L2
-             or device memory: each CTA reads its visited kv tiles).
+             or device memory: each CTA reads its visited kv tiles);
+             the flash kernel also at one layer of each of the remaining
+             archs, MLA's bound at its own 192/128 split (the padded
+             call's beside it).
 
 The last two lines of standard output are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -230,7 +258,7 @@ def main() -> int:
     from repro_torch import cuda
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     cuda.library()
     built = ("reused" if cuda.BUILD_SECONDS is None
              else f"nvcc {cuda.BUILD_SECONDS:.2f} s")
@@ -268,6 +296,7 @@ def main() -> int:
     # profiled after the long plain versions, their traces held no
     # device records (see device_ms)
     early = early_device_ms(torch, rwkv_served, jamba_served)
+    archs = [arch_serve_path(torch, dev, *spec) for spec in ARCH_PHASES]
     kernels = timing(torch, cases)
     transport = next(k for k in kernels if k["name"] == "schedule_exec")
     transport["gather_body"] = gather_row
@@ -280,10 +309,22 @@ def main() -> int:
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash["cases"].append(jamba_attention_timing(torch, jamba_served,
                                                  early["jamba_attention"]))
+    flash["cases"] += [arch_attention_timing(torch, a) for a in archs]
+    # each served model's prefill, counted with the counters reset just
+    # before it: gemma2-2b's is the entry's own ``launches``
+    flash["launches_by_model"] = {
+        SERVE_ARCH: served["launches"],
+        f"{JAMBA_ARCH}-one-card": jamba_served["attn_launches"],
+        **{a["name"]: a["launches"] for a in archs}}
+    flash["max_abs_err"] = max([flash["max_abs_err"]]
+                               + [a["max_abs_err"] for a in archs])
     kernels += wkv6_timing(torch, rwkv_served, wkv_err, early["wkv6"],
                            early["wkv6_split"])
     kernels += mamba_scan_timing(torch, jamba_served, scan_err,
                                  early["mamba_scan"])
+    print(f"phases of the remaining archs (s): "
+          f"{ {a['name']: round(a['seconds'], 2) for a in archs} }; whole "
+          f"run {time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1934,6 +1975,9 @@ def attention_parity(torch, dev) -> dict:
     shapes.append((96, 4, 2, 333))               # D padded to 128
     shapes.append((136, 4, 2, 400))              # D padded to 256
     shapes.append((20, 6, 2, 160))               # bf16 on the CUDA cores
+    shapes.append((192, 8, 8, 256))              # MLA's q/k head dim
+    shapes.append((128, 28, 4, 256))             # group 7 (qwen2-vl)
+    shapes.append((64, 12, 12, 256))             # whisper's decoder
     for D, H, K, S in shapes:
         for dtname in ("float32", "bfloat16"):
             dtype = getattr(torch, dtname)
@@ -1966,8 +2010,9 @@ def attention_parity(torch, dev) -> dict:
                                  f"{label}: dead rows not exact zeros")
                     worst[name] = max(worst.get(name, 0.0), err)
                     checked += 1
-    print(f"attention parity: {checked} kernel calls (head_dim 64/128/256, "
-          f"20, 96, 128 and 136 at ragged lengths, groups 1/2/8/3, "
+    print(f"attention parity: {checked} kernel calls (head_dim 64/128/192/"
+          f"256, 20, 96, 128 and 136 at ragged lengths, groups 1/2/8/3/7, "
+          f"12 heads of 64, "
           f"{len(ATTN_VARIANTS)} mask/softcap variants, f32 "
           f"and bf16, plain and gather) within atol=rtol 3e-5 (f32) / "
           f"2e-2 (bf16); max |err| {worst}; bodies {bodies}; "
@@ -2216,10 +2261,11 @@ def _attn_stats(row, ms, flops, kv_bytes) -> str:
             f"{kv_bytes / ms / 1e9:.2f} TB/s")
 
 
-def _flex(torch, q, k, v, window, cap):
+def _flex(torch, q, k, v, window, cap, scale=None):
     """``torch.nn.attention.flex_attention`` computing the same function
     (the yardstick; the port never calls it): a softcap ``score_mod``
-    and a causal or sliding-window ``mask_mod``, compiled."""
+    and a causal or sliding-window ``mask_mod``, compiled; ``scale``
+    None is head_dim^-1/2."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
 
@@ -2240,7 +2286,7 @@ def _flex(torch, q, k, v, window, cap):
     def call(q, k, v):
         return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                   score_mod=score_mod, block_mask=block_mask,
-                  enable_gqa=True).transpose(1, 2)
+                  scale=scale, enable_gqa=True).transpose(1, 2)
     return call
 
 
@@ -3072,8 +3118,8 @@ def jamba_serve_path(torch, dev) -> dict:
     print(f"jamba: device memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB allocated during the phase", flush=True)
     return {"launches": launches["mamba_scan"], "scan": keep["scan"],
-            "attn": keep["attn"], "max_abs_err": layer_err,
-            "prefill_ms": prefill_ms}
+            "attn": keep["attn"], "attn_launches": launches["flash_attention"],
+            "max_abs_err": layer_err, "prefill_ms": prefill_ms}
 
 
 def _sm_clock_hz() -> float:
@@ -3229,6 +3275,499 @@ def jamba_attention_timing(torch, served, dev_ms) -> dict:
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
           f"[{note}]", flush=True)
     return row
+
+
+# ---------------------------------------------------------------------------
+# the remaining archs: moonshot-v1-16b-a3b, deepseek-v3-671b's one-card
+# cut, qwen2-vl-7b and whisper-small served at full width
+# ---------------------------------------------------------------------------
+
+# (arch, one-card cut, prefill batch, prefill tokens, layers kept for the
+# f32 decode check or None for all): moonshot's 112 GB in f32 takes
+# layers 0-2 (dense, MoE, MoE), as jamba's phase takes layers 0-4
+ARCH_PHASES = [("moonshot-v1-16b-a3b", False, 1, PREFILL_TOKENS, 3),
+               ("deepseek-v3-671b", True, 1, PREFILL_TOKENS, None),
+               ("qwen2-vl-7b", False, 1, PREFILL_TOKENS, None),
+               # whisper's text context is 448, no multiple of 128
+               ("whisper-small", False, 8, 256, None)]
+# each layer's kernel output is also held over its last quarter of rows,
+# measured against those rows' own rms: with these random weights the
+# scores there are about N(0, 1) over thousands of live keys, so an
+# output is near 1/sqrt(live keys), the size of the 2e-2 limit itself.
+# bf16 rounding of the output and of P gives rms(err) near 2e-3 of rms;
+# a kv tile dropped or misscaled at 8192 keys gives near 9e-2
+LATE_RMS_REL = 1e-2              # rms(err) / rms(plain) over late rows
+LATE_MAX_REL = 0.125             # max |err| / rms(plain) over late rows
+
+
+def _flash_kw(real, args, kw) -> dict:
+    """The flash op's causal / window / softcap / scale of one call."""
+    import inspect
+    bound = inspect.signature(real).bind(*args, **kw)
+    bound.apply_defaults()
+    a = bound.arguments
+    return {k: a[k] for k in ("causal", "window", "softcap", "scale")}
+
+
+def _plain_rows(torch, q, k, v, kw):
+    """The model's plain core on the same q/k/v, q in row chunks (the
+    one-shot [B, H, S, S] f32 scores would not fit beside the model)."""
+    from repro_torch.models import attention as A
+    B, S, H, _ = q.shape
+    pos = torch.arange(S, device=q.device)[None]
+    return A._chunked_core(q, k, v, pos, causal=kw["causal"],
+                           window=kw["window"], cap=kw["softcap"],
+                           scale=kw["scale"],
+                           chunk=A._chunk_rows(B, H, S))
+
+
+def _late_rows(torch, got, want, what) -> tuple:
+    """(rms of ``want`` over its last quarter of rows, rms(err) and max
+    |err| over those rows, each divided by that rms); raises past
+    LATE_RMS_REL or LATE_MAX_REL."""
+    S = want.shape[1]
+    w = want[:, S - S // 4:].float()
+    e = got[:, S - S // 4:].float() - w
+    rms = w.square().mean().sqrt().item()
+    rel_rms = e.square().mean().sqrt().item() / rms
+    rel_max = e.abs().max().item() / rms
+    _require(rel_rms <= LATE_RMS_REL and rel_max <= LATE_MAX_REL,
+             f"{what}, rows {S - S // 4}-{S - 1}: rms(err) / rms "
+             f"{rel_rms:.4g} (limit {LATE_RMS_REL}), max |err| / rms "
+             f"{rel_max:.4g} (limit {LATE_MAX_REL}); rms {rms:.4g}")
+    return rms, rel_rms, rel_max
+
+
+def _logits_agree(torch, a, b, dev) -> tuple:
+    """(max |a - b|, positions whose top-1 agrees) of two [B, S, V]
+    logits, either on the host, compared on ``dev`` 1024 rows at a time."""
+    B, S, _ = a.shape
+    max_err, agree = 0.0, 0
+    for r in range(B):
+        for c in range(0, S, 1024):
+            x = a[r, c:c + 1024].to(dev)
+            y = b[r, c:c + 1024].to(dev)
+            max_err = max(max_err, (x.float() - y.float()).abs().max()
+                          .item())
+            agree += int((x.argmax(-1) == y.argmax(-1)).sum())
+    return max_err, agree
+
+
+def _route_split(a, b) -> list:
+    """Per MoE layer, the share of tokens whose chosen experts differ
+    between two runs' ``moe.route`` indices."""
+    return [float((x.sort(-1).values != y.sort(-1).values).any(-1).float()
+                  .mean()) for x, y in zip(a, b)]
+
+
+def _witness_cores(torch, attention, mla):
+    """Replace the plain attention cores (``attention.core_attention``,
+    ``mla._attend``) by the same function with its P V product in f32
+    (P not rounded to bf16, the output rounded once); returns a function
+    that puts the originals back."""
+    real_core, real_attend = attention.core_attention, mla._attend
+
+    def core(q, k, v, mask, **kw):
+        return real_core(q, k, v.float(), mask, **kw).to(v.dtype)
+
+    def attend(p, cfg, q_nope, q_rope, ckv, k_rope, mask, kv=None):
+        k_nope, v = mla._up(p, cfg, ckv) if kv is None else kv
+        return real_attend(p, cfg, q_nope, q_rope, ckv, k_rope, mask,
+                           kv=(k_nope, v.float())).to(v.dtype)
+
+    def restore():
+        attention.core_attention, mla._attend = real_core, real_attend
+    attention.core_attention, mla._attend = core, attend
+    return restore
+
+
+def _prompt_inputs(torch, cfg, gen, dev, B, S):
+    """(tokens [B, S], the prefill's extra inputs): a qwen2-vl prompt
+    carries seeded patch embeddings in its leading ``vision_prefix``
+    rows, a whisper prompt seeded frames [B, n_frames, d]; bf16."""
+    toks = torch.randint(2, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev)
+    extra = {}
+    if cfg.vision_prefix:
+        extra["vision_embeds"] = torch.randn(
+            (B, cfg.vision_prefix, cfg.d_model), generator=gen,
+            device=dev).to(torch.bfloat16)
+    if cfg.encoder is not None:
+        extra["encoder_frames"] = torch.randn(
+            (B, cfg.encoder.n_frames, cfg.encoder.d_model), generator=gen,
+            device=dev).to(torch.bfloat16)
+    return toks, extra
+
+
+def arch_serve_path(torch, dev, arch, cut, B, S, f32_layers) -> dict:
+    """One of the remaining archs at full width: (a) the kernel prefill
+    of one prompt with the counters reset just before and read just
+    after (one flash launch per causal attention or MLA layer, every
+    one on the wgmma body), each layer's kernel output against the plain
+    core on the same inputs (MLA: ``_attend`` on the same latents), the
+    logits reported against the plain prefill, the prefill timed alone;
+    (b) the launcher's loop in bf16, reported; (c) the weights widened
+    to f32 (moonshot: layers 0-2) at batch 1, where the teacher-forced
+    decode logits must match the kernel prefill's at the model
+    tolerance."""
+    from torch import nn
+    from repro_torch import configs, cuda
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import attention, blocks, mla, moe
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeOptions, make_prefill_step
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_one_card(arch) if cut else configs.get_config(arch)
+    tag = cfg.name
+    print(f"{tag}: device memory {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated before the phase (the earlier models freed)",
+          flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    wbytes = _nbytes(*params.parameters())
+    held = ""
+    if cfg.moe is not None and cfg.moe.held is not None:
+        lo, hi = cfg.moe.held_range()
+        held = f", experts {lo}-{hi - 1} of {cfg.moe.n_experts} held"
+    print(f"{tag}: {cfg.n_layers} layers at full width{held}"
+          f"{', encoder %d layers' % cfg.encoder.n_layers if cfg.encoder else ''}"
+          f", {cfg.param_count():,} parameters = {wbytes / 1e9:.2f} GB "
+          f"(random from seed 0) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    V = cfg.vocab_size
+    is_mla = cfg.mla is not None
+    n_flash = sum(s.mixer in ("attn", "mla") for s in cfg.blocks())
+    prefill = make_prefill_step(cfg, ServeOptions(use_kernel=True))
+    prefill_plain = make_prefill_step(cfg, ServeOptions(use_kernel=False))
+    gen.manual_seed(1)
+    prompt, extra = _prompt_inputs(torch, cfg, gen, dev, B, S)
+    warm = {k: v[:, :128] if k == "vision_embeds" else v
+            for k, v in extra.items()}
+    prefill(params, prompt[:, :128], **warm)          # warm-up, not counted
+    torch.cuda.synchronize()
+
+    # (a) the kernel prefill; each layer's kernel output is held against
+    # its plain version right after the call (recording them all would
+    # not fit beside moonshot's 56 GB)
+    errs, late, keep = [], [], {}
+    real_flash = attn_ops.flash_attention
+    real_core = mla._kernel_core
+
+    def check(out, plain, what):
+        errs.append(_close(torch, out, plain, ATTN_TOL["bfloat16"],
+                           ATTN_TOL["bfloat16"], what))
+        late.append(_late_rows(torch, out, plain, what))
+
+    def flash(q, k, v, *args, **kw):
+        out = real_flash(q, k, v, *args, **kw)
+        fkw = _flash_kw(real_flash, (q, k, v) + args, kw)
+        keep.setdefault("attn", (q, k, v, fkw, out))
+        if not is_mla:
+            check(out, _plain_rows(torch, q, k, v, fkw),
+                  f"{tag} layer {len(errs)} kernel vs the plain core")
+        return out
+
+    def kernel_core(p, c, q_nope, q_rope, ckv, k_rope):
+        out = real_core(p, c, q_nope, q_rope, ckv, k_rope)
+        check(out, mla._plain_core(p, c, q_nope, q_rope, ckv, k_rope),
+              f"{tag} MLA layer {len(errs)} kernel vs the plain _attend")
+        return out
+
+    attn_ops.flash_attention = flash
+    mla._kernel_core = kernel_core
+    resid, routes = [], {"kernel": [], "plain": [], "witness": []}
+    real_block = _record(blocks, "forward", resid, lambda a, kw, out: (
+        out.abs().max(), out.float().square().mean().sqrt()))
+    real_route = _record(moe, "route", routes["kernel"],
+                         lambda a, kw, out: out[1])
+    try:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill(params, prompt, **extra)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        bodies = dict(cuda.FLASH_BODIES)
+    finally:
+        attn_ops.flash_attention = real_flash
+        mla._kernel_core = real_core
+        blocks.forward = real_block
+        moe.route = real_route
+    print(f"{tag} (a) prefill: B={B} S={S} in {prefill_s * 1e3:.3f} ms "
+          f"(host clock around the step, synchronized; the per-layer "
+          f"plain checks included), launches {launches}, flash bodies "
+          f"{bodies}", flush=True)
+    _require(launches["flash_attention"] == n_flash,
+             f"{tag} prefill launched flash_attention "
+             f"{launches['flash_attention']} times, not {n_flash}")
+    _require(bodies == {"wgmma": n_flash, "cuda_cores": 0},
+             f"{tag} prefill flash bodies {bodies}, not all wgmma")
+    _require(len(errs) == n_flash, f"{tag}: not one check per layer")
+    _require(logits.shape == (B, S, V)
+             and bool(torch.isfinite(logits).all()), f"{tag} logits")
+    print(f"{tag} (a) largest |residual| after each block"
+          f"{' (the encoder first)' if cfg.encoder else ''}: "
+          f"{[round(float(m), 2) for m, _ in resid]}; its rms: "
+          f"{[round(float(r), 2) for _, r in resid]} (bf16)", flush=True)
+    print(f"{tag} (a) layers: all {n_flash} kernel outputs within 2e-2 of "
+          f"the plain {'_attend on the same latents' if is_mla else 'core on the same q/k/v'}"
+          f", max |err| {max(errs):.4g}; over the last quarter of rows the "
+          f"plain output's rms is {min(r for r, _, _ in late):.4g} to "
+          f"{max(r for r, _, _ in late):.4g} across layers, rms(err) / rms "
+          f"at most {max(e for _, e, _ in late):.4g} (limit {LATE_RMS_REL}),"
+          f" max |err| / rms at most {max(e for _, _, e in late):.4g} "
+          f"(limit {LATE_MAX_REL})", flush=True)
+    q, k, v, fkw, out = keep["attn"]
+    dev_ms = device_ms(torch, "flash_attention", functools.partial(
+        attn_ops.flash_attention, **fkw), q, k, v, reps=LONG_REPS)
+    logits = logits.cpu()
+    real_route = _record(moe, "route", routes["plain"],
+                         lambda a, kw, out: out[1])
+    try:
+        t0 = time.perf_counter()
+        plain_logits = prefill_plain(params, prompt, **extra)
+        torch.cuda.synchronize()
+        plain_dt = time.perf_counter() - t0
+    finally:
+        moe.route = real_route
+    max_err, agree = _logits_agree(torch, logits, plain_logits, dev)
+    print(f"{tag} (a) logits vs the plain prefill ({plain_dt * 1e3:.1f} "
+          f"ms; reported): max |err| {max_err:.4g}, top-1 agrees at "
+          f"{agree}/{B * S} = {agree / (B * S):.4f} of positions",
+          flush=True)
+    # the witness: the plain prefill again, differing from it only in
+    # rounding (every plain attention core's P V product in f32), shows
+    # how far bf16 rounding alone moves this model's logits
+    plain_logits = plain_logits.cpu()
+    restore = _witness_cores(torch, attention, mla)
+    real_route = _record(moe, "route", routes["witness"],
+                         lambda a, kw, out: out[1])
+    try:
+        witness_logits = prefill_plain(params, prompt, **extra)
+    finally:
+        restore()
+        moe.route = real_route
+    w_err, w_agree = _logits_agree(torch, plain_logits, witness_logits, dev)
+    print(f"{tag} (a) witness, the plain prefill with each plain attention "
+          f"core's P V product in f32 (the same function, one rounding "
+          f"fewer), vs the plain prefill: max |err| {w_err:.4g}, top-1 "
+          f"agrees at {w_agree}/{B * S} = {w_agree / (B * S):.4f} of "
+          f"positions (the kernel's: {agree / (B * S):.4f})", flush=True)
+    splits = {}
+    if routes["kernel"]:
+        for pair in (("kernel", "plain"), ("witness", "plain")):
+            share = _route_split(routes[pair[0]], routes[pair[1]])
+            first = next((i for i, x in enumerate(share) if x > 0), None)
+            splits[" vs ".join(pair)] = {"share": share, "first": first}
+            print(f"{tag} (a) experts chosen, {' vs '.join(pair)}: share "
+                  f"of tokens whose top-{cfg.moe.top_k} differs at each of "
+                  f"the {len(share)} MoE layers "
+                  f"{[round(x, 4) for x in share]}; first split at MoE "
+                  f"layer {first}", flush=True)
+    del plain_logits, logits, witness_logits, routes
+    torch.cuda.empty_cache()
+    prefill_ms = _prefill_ms(torch, functools.partial(prefill, **extra),
+                             params, prompt)
+    print(f"{tag} (a) prefill timed alone: {prefill_ms:.3f} ms = "
+          f"{B * S / prefill_ms * 1e3:.1f} tokens/s (CUDA events around "
+          f"one prefill, median of {PREFILL_TIMES})", flush=True)
+
+    # (b) the launcher's loop in bf16, reported (the MoE archs' capacity
+    # dispatch drops pairs at batch 4), then the kernel prefill of its
+    # prompts
+    gen.manual_seed(2)
+    prompts, lextra = _prompt_inputs(torch, cfg, gen, dev, LAUNCH_BATCH,
+                                     LAUNCH_PROMPT)
+    lextra.pop("vision_embeds", None)          # served text-only
+    with torch.no_grad():
+        cross = (M.encode(params, cfg, lextra["encoder_frames"])
+                 if cfg.encoder is not None else None)
+    launcher.generate(params, cfg, prompts[:, :4], 2, cross_src=cross)
+    torch.cuda.synchronize()
+    steps = LAUNCH_PROMPT + LAUNCH_GEN - 1
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    out_b, step_logits = launcher.generate(params, cfg, prompts, LAUNCH_GEN,
+                                           cross_src=cross)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pre = prefill(params, prompts, **lextra)
+    torch.cuda.synchronize()
+    launches_b = dict(cuda.LAUNCHES)
+    print(f"{tag} (b) launcher bfloat16: batch {LAUNCH_BATCH}, prompt "
+          f"{LAUNCH_PROMPT}, gen {LAUNCH_GEN}: {steps} decode steps in "
+          f"{dt * 1e3:.3f} ms = {dt * 1e3 / steps:.3f} ms per decode step "
+          f"(one token for each of {LAUNCH_BATCH} sequences), "
+          f"{steps * LAUNCH_BATCH / dt:.1f} tokens/s; launches {launches_b}",
+          flush=True)
+    _require(out_b.shape == (LAUNCH_BATCH, LAUNCH_GEN)
+             and bool(((out_b >= 0) & (out_b < V)).all()), "generated tokens")
+    _require(launches_b["flash_attention"] == n_flash,
+             f"{tag}: the launcher check's prefill did not run the kernel "
+             f"per layer")
+    dec = step_logits[:, :LAUNCH_PROMPT]
+    _require(bool(torch.isfinite(dec).all()), f"{tag} decode logits")
+    d = (dec.float() - pre.float()).abs()
+    beyond = int((d > MODEL_ATOL + MODEL_RTOL * pre.float().abs()).sum())
+    print(f"{tag} (b) bfloat16 decode logits at the {LAUNCH_PROMPT} prompt "
+          f"positions vs the kernel prefill (reported): max |err| "
+          f"{d.max().item():.4g}, {beyond}/{d.numel()} beyond atol "
+          f"{MODEL_ATOL} + rtol {MODEL_RTOL}, top-1 agrees "
+          f"{(dec.argmax(-1) == pre.argmax(-1)).float().mean().item():.4f}",
+          flush=True)
+    del step_logits, pre, dec, d, cross
+
+    # (c) the weights widened to f32, at batch 1: the teacher-forced
+    # decode logits held to the model tolerance against the kernel
+    # prefill's
+    ccfg = cfg
+    if f32_layers is not None:
+        params.layers = nn.ModuleList(list(params.layers)[:f32_layers])
+        ccfg = dataclasses.replace(
+            cfg, name=f"{cfg.name}-layers-0-{f32_layers - 1}",
+            n_periods=f32_layers - len(cfg.prefix))
+        _require(ccfg.n_layers == f32_layers, "the f32 cut's depth")
+    torch.cuda.empty_cache()
+    for p in params.parameters():
+        p.data = p.data.float()
+        if p.numel() >= 1 << 28:
+            torch.cuda.empty_cache()
+    prefill32 = make_prefill_step(ccfg, ServeOptions(use_kernel=True))
+    gen.manual_seed(3)
+    prompt1, extra1 = _prompt_inputs(torch, ccfg, gen, dev, 1, HELD_PROMPT)
+    extra1.pop("vision_embeds", None)
+    extra1 = {k: t.float() for k, t in extra1.items()}
+    with torch.no_grad():
+        cross1 = (M.encode(params, ccfg, extra1["encoder_frames"])
+                  if ccfg.encoder is not None else None)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    _, step_logits = launcher.generate(params, ccfg, prompt1, HELD_GEN,
+                                       cross_src=cross1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pre = prefill32(params, prompt1, **extra1)
+    torch.cuda.synchronize()
+    launches_c = dict(cuda.LAUNCHES)
+    _require(launches_c["flash_attention"]
+             == sum(s.mixer in ("attn", "mla") for s in ccfg.blocks()),
+             f"{tag}: the f32 check's prefill did not run the kernel per "
+             f"layer")
+    dec = step_logits[:, :HELD_PROMPT]
+    dec_err = _close(torch, dec, pre, MODEL_ATOL, MODEL_RTOL,
+                     f"{tag} f32 teacher-forced decode logits (batch 1) vs "
+                     f"the kernel prefill")
+    print(f"{tag} (c) {ccfg.n_layers} layers widened to f32 "
+          f"({_nbytes(*params.parameters()) / 1e9:.2f} GB), batch 1, "
+          f"prompt {HELD_PROMPT}, gen {HELD_GEN}: decode logits at the "
+          f"prompt positions vs the kernel prefill: max |err| {dec_err:.4g} "
+          f"(within atol {MODEL_ATOL} + rtol {MODEL_RTOL}), top-1 agrees "
+          f"{(dec.argmax(-1) == pre.argmax(-1)).float().mean().item():.4f}, "
+          f"max |logit| {pre.abs().max().item():.4g}; {dt * 1e3:.1f} ms, "
+          f"launches {launches_c}", flush=True)
+    del params, step_logits, pre, dec, cross1
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"{tag}: device memory peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB during the "
+          f"phase; phase {seconds:.2f} s", flush=True)
+    return {"arch": arch, "name": tag, "launches": launches["flash_attention"],
+            "max_abs_err": max(errs), "prefill_ms": prefill_ms,
+            "late_rows": {"rms_min": min(r for r, _, _ in late),
+                          "rel_rms_max": max(e for _, e, _ in late),
+                          "rel_max_max": max(e for _, _, e in late)},
+            "logits_top1": agree / (B * S),
+            "witness_top1": w_agree / (B * S), "route_splits": splits,
+            "attn": keep["attn"], "dev_ms": dev_ms, "mla": cfg.mla,
+            "seconds": seconds}
+
+
+def arch_attention_timing(torch, served) -> dict:
+    """The flash kernel at one layer's inputs of an arch phase, beside
+    the plain core in row chunks, the bound and flex_attention
+    (``served["dev_ms"]`` from the phase).  For MLA the bound, its
+    operations and bytes are the function's own split (192 for q k^T,
+    128 for P V, v and the output); those of the call as made, v padded
+    to 192, are the ``*_as_called`` keys."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    q, k, v, kw, out = served["attn"]
+    win, cap, scale = kw["window"], kw["softcap"], kw["scale"]
+    label = (f"{served['name']} attention layer: q {list(q.shape)} k/v "
+             f"{list(k.shape)} {str(q.dtype)[6:]}, causal, window {win}, "
+             f"softcap {cap}, scale {scale}")
+    kern = functools.partial(attn_ops.flash_attention, **kw)
+
+    def plain(q, k, v):
+        return _plain_rows(torch, q, k, v, kw)
+    body = _body_of(torch, kern, q, k, v)
+    _require(body == "wgmma", f"{label}: ran on the {body} body")
+    ms, reps = time_long_ms(torch, kern, q, k, v)
+    plain_ms, plain_reps = time_long_ms(torch, plain, q, k, v)
+    B, S, H, D = q.shape
+    pairs = _live_pairs(S, win)
+    flops = 4 * D * H * B * pairs
+    nbytes = _nbytes(q, k, v, out)
+    as_called = {}
+    if served["mla"] is not None:
+        # the function's own work: q k^T at the qk head dim, P V and the
+        # output at the v head dim, k_rope read once for all heads; the
+        # padded call's figures are kept beside it
+        m = served["mla"]
+        as_called = {"operations_as_called": flops,
+                     "bytes_as_called": nbytes,
+                     "bound_ms_as_called": max(
+                         nbytes / HBM_BYTES_PER_S,
+                         flops / BF16_TC_OPS_PER_S) * 1e3}
+        flops = 2 * H * B * pairs * (m.qk_head_dim + m.v_head_dim)
+        nbytes = q.element_size() * B * S * (
+            H * m.qk_head_dim + H * m.qk_nope_head_dim + m.qk_rope_head_dim
+            + 2 * H * m.v_head_dim)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_TC_OPS_PER_S * 1e3
+    library = "torch.compile(flex_attention) with a causal mask_mod"
+    try:
+        flex = _flex(torch, q, k, v, win, cap, scale)
+        flex_err = (flex(q, k, v).float() - out.float()).abs().max()
+        library_ms, _ = time_long_ms(torch, flex, q, k, v)
+        note = f"flex max |diff| vs kernel {flex_err.item():.4g}"
+    except Exception as e:               # the yardstick, not the port
+        library, library_ms = None, None
+        note = (f"none is one call: flex_attention failed on this card "
+                f"({type(e).__name__}: {str(e)[:200]})")
+    row = {"case": label, "body": body, "ms": ms,
+           "device_ms": served["dev_ms"], "reps": reps, "plain_ms": plain_ms,
+           "plain_reps": plain_reps,
+           "plain_call": "the model's plain core, q in row chunks",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "operations": flops, "live_pairs": pairs,
+           "library_ms": library_ms, "library_call": library,
+           "library_note": note, **as_called}
+    split = ""
+    if as_called:
+        split = (f" at MLA's own {m.qk_head_dim}/{m.v_head_dim} split; as "
+                 f"called, v padded to {D}, "
+                 f"{as_called['bound_ms_as_called']:.4f} ms")
+    stats = _attn_stats(row, ms, flops, _kv_read_bytes(q, k, win, body))
+    dev = served["dev_ms"]
+    print(f"{'flash_attention':>22} | {label}: {ms:.4f} ms [device "
+          f"{dev if dev is None else round(dev, 4)} ms] ({reps}; {body} "
+          f"body; bound {row['bound_ms']:.4f} ms by {row['bound_by']}"
+          f"{split}, {stats}), plain {plain_ms:.4f} ms ({plain_reps}), "
+          f"library "
+          f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
+          f"[{note}]", flush=True)
+    return row
+
 
 if __name__ == "__main__":
     sys.exit(main())

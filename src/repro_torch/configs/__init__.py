@@ -1,11 +1,10 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
-The same names and numbers as the reference package's registry.  The
-port runs the dense attention + MLP archs, rwkv6-3b and
-jamba-1.5-large-398b; the others raise ``KeyError`` until their modules
-are ported (ROADMAP.md, Queue 1 item 10).  ``get_one_card(arch)`` is the
-cut of a model too large for one card (jamba: one period and rank 0's
-share of the experts), named in the config's own file.
+The same names and numbers as the reference package's registry; the
+port runs all ten archs.  ``get_one_card(arch)`` is the cut of a model
+too large for one card (jamba-1.5-large-398b and deepseek-v3-671b: one
+period and rank 0's share of the experts), named in the config's own
+file.
 """
 from __future__ import annotations
 
@@ -16,18 +15,11 @@ ARCHS = [
     "deepseek-v3-671b", "moonshot-v1-16b-a3b", "rwkv6-3b",
     "whisper-small", "qwen2-vl-7b", "jamba-1.5-large-398b",
 ]
-PORTED = ("gemma2-2b", "gemma-2b", "qwen3-14b", "smollm-360m", "rwkv6-3b",
-          "jamba-1.5-large-398b")
 
 
 def _module(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
-    if arch not in PORTED:
-        raise KeyError(f"arch {arch!r} is not yet ported to repro_torch "
-                       f"(its mixer or feed-forward modules are still to "
-                       f"port, see ROADMAP.md Queue 1 item 10); ported: "
-                       f"{list(PORTED)}")
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 

@@ -115,7 +115,8 @@ def _flatten(tree: dict, prefix: str, out: dict, index=None,
             out[key] = tensor_from_numpy(a)
 
 
-_TOP = ("embed", "final_norm", "lm_head", "prefix", "periods", "suffix")
+_TOP = ("embed", "final_norm", "lm_head", "prefix", "periods", "suffix",
+        "encoder")
 
 
 def params_from_jax(tree: dict, *, held: tuple[int, int] | None = None
@@ -125,11 +126,15 @@ def params_from_jax(tree: dict, *, held: tuple[int, int] | None = None
 
     ``prefix[i]`` becomes ``layers.{i}``; the stacked ``periods/b{j}``
     arrays are cut along their leading ``n_periods`` axis into layers
-    ``len(prefix) + p * len(period) + j``; ``suffix`` follows.  Values
-    and dtypes are kept (bfloat16 bit for bit).  With ``held = (lo,
-    hi)`` every MoE layer keeps only experts [lo, hi) of its stacked
-    ``w_gate`` / ``w_up`` / ``w_down`` (the router keeps all of them), the
-    state of a model whose ``MoEConfig.held`` is that range."""
+    ``len(prefix) + p * len(period) + j``; ``suffix`` follows;
+    ``encoder/layers[i]`` becomes ``encoder.layers.{i}``.  Inside a
+    block the names carry over as they are (``mla.*``, ``moe.router_bias``,
+    ``moe.shared.*``, ``norm_cross``, ``cross.*``, ...).  Values and
+    dtypes are kept (bfloat16 bit for bit).  With ``held = (lo, hi)``
+    every MoE layer keeps only experts [lo, hi) of its stacked
+    ``w_gate`` / ``w_up`` / ``w_down`` (the router, its bias and the
+    shared experts stay whole), the state of a model whose
+    ``MoEConfig.held`` is that range."""
     unknown = sorted(set(tree) - set(_TOP))
     if unknown:
         raise ValueError(f"params_from_jax: no port for {unknown}")
@@ -155,4 +160,9 @@ def params_from_jax(tree: dict, *, held: tuple[int, int] | None = None
     for block in tree.get("suffix", []):
         _flatten(block, f"layers.{layer}.", state, held=held)
         layer += 1
+    if "encoder" in tree:
+        for i, block in enumerate(tree["encoder"]["layers"]):
+            _flatten(block, f"encoder.layers.{i}.", state)
+        state["encoder.final_norm"] = tensor_from_numpy(
+            np.asarray(tree["encoder"]["final_norm"]))
     return state

@@ -12,6 +12,10 @@ and the continuous-batching path over disaggregated KV pools.
         --arch jamba-1.5-large-398b --one-card --batch 4 --prompt-len 32
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --one-card --batch 4 --prompt-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-small --batch 4 --prompt-len 32 --gen 16
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --continuous --kv-transport kernel
@@ -21,8 +25,12 @@ and the continuous-batching path over disaggregated KV pools.
 The prompt is fed token by token through the decode step (teacher
 forced), then ``--gen`` tokens are generated greedily.  ``--one-card``
 takes the config's cut for one card (jamba: one period, experts 0-7 of
-16; see its config file).  Weights and prompts are random, drawn from
-seeded generators on the device.  The default device is ``cuda``;
+16; deepseek-v3: layers 0-3, experts 0-7 of 256; see the config files).
+Weights and prompts are random, drawn from seeded generators on the
+device.  An encoder-decoder (whisper) encodes seeded random frames
+[batch, n_frames, d_model] in bf16 once and every decode step reads
+that output; a VLM (qwen2-vl) is served text-only, as in the reference,
+whose decode step takes no vision input.  The default device is ``cuda``;
 without a card the launcher stops with an error instead of running on
 the CPU.
 
@@ -73,13 +81,15 @@ from repro_torch.serve.step import (ServeOptions, init_serve_cache,
 
 
 def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
-             opts: ServeOptions = ServeOptions()):
+             opts: ServeOptions = ServeOptions(), cross_src=None):
     """Teacher-forced prefill through the decode step, then ``gen``
     greedy tokens.  Returns (tokens [B, gen] int32, logits [B, P+gen-1,
     V]): step i's logits follow token i of the fed sequence.  The KV
-    cache and the rwkv token-shift carries take the weights' dtype (bf16,
-    as in the reference); the rwkv state ``s`` and the mamba state ``h``
-    are f32, the mamba conv window bf16."""
+    cache, MLA's latent cache and the rwkv token-shift carries take the
+    weights' dtype (bf16, as in the reference); the rwkv state ``s`` and
+    the mamba state ``h`` are f32, the mamba conv window bf16.
+    ``cross_src`` (the encoder output) goes to every decode step of an
+    encoder-decoder."""
     B, P = prompts.shape
     max_len = P + gen
     cache = init_serve_cache(cfg, B, max_len, device=prompts.device,
@@ -88,7 +98,7 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
     tok = prompts[:, :1]
     outs, logits = [], []
     for i in range(max_len - 1):
-        nxt, cache, last = decode(params, cache, tok)
+        nxt, cache, last = decode(params, cache, tok, cross_src)
         logits.append(last)
         if i + 1 < P:
             tok = prompts[:, i + 1: i + 2]              # teacher-forced
@@ -297,7 +307,9 @@ def main(argv=None):
     size.add_argument("--smoke", action="store_true")
     size.add_argument("--one-card", action="store_true",
                       help="the config's cut for one card (jamba-1.5-"
-                           "large-398b: one period, experts 0-7 of 16)")
+                           "large-398b: one period, experts 0-7 of 16; "
+                           "deepseek-v3-671b: layers 0-3, experts 0-7 of "
+                           "256)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -433,9 +445,17 @@ def main(argv=None):
     g.manual_seed(1)
     prompts = torch.randint(2, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g, device=device)
+    cross = None
+    if cfg.encoder is not None:
+        g.manual_seed(2)
+        frames = torch.randn((args.batch, cfg.encoder.n_frames,
+                              cfg.encoder.d_model), generator=g,
+                             device=device).to(torch.bfloat16)
+        with torch.no_grad():
+            cross = M.encode(params, cfg, frames)
 
     t0 = time.perf_counter()
-    out, _ = generate(params, cfg, prompts, args.gen)
+    out, _ = generate(params, cfg, prompts, args.gen, cross_src=cross)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

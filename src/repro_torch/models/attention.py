@@ -1,11 +1,14 @@
 """Multi-head attention: GQA/MQA, sliding window, logit softcap, qk_norm,
-KV-cache decode.
+M-RoPE, cross-attention, KV-cache decode.
 
-The prefill core routes through ``repro_torch.kernels.attention.ops``
+The causal prefill core routes through ``repro_torch.kernels.attention.ops``
 (the hand-written flash kernel) when ``use_kernel``; everything around
 it (projections, rope, cache, the decode step's attention) is plain
-PyTorch.  Cross-attention and M-RoPE wait for whisper and qwen2-vl
-(ROADMAP.md, Queue 1 item 10).
+PyTorch.  As in the reference, cross-attention (whisper's decoder: keys
+and values from the encoder output, no rope, every key live) and
+non-causal self-attention (whisper's encoder) always run the plain
+core.  With M-RoPE (qwen2-vl) ``positions`` is [3, B, S] (time, height,
+width streams); the prefill masks with the time stream.
 """
 from __future__ import annotations
 
@@ -13,22 +16,11 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.models.common import (apply_rope, attn_mask, dense_init_,
-                                       rmsnorm, softcap)
+from repro_torch.models.common import (apply_mrope, apply_rope, attn_mask,
+                                       dense_init_, rmsnorm, softcap)
 from repro_torch.models.config import AttnConfig
 
 NEG_INF = -1e30
-
-
-def _check_supported(cfg: AttnConfig) -> None:
-    if cfg.cross:
-        raise NotImplementedError(
-            "cross-attention is not yet ported (whisper; ROADMAP.md "
-            "Queue 1 item 10)")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE is not yet ported (qwen2-vl; ROADMAP.md Queue 1 "
-            "item 10)")
 
 
 class Attention(nn.Module):
@@ -38,7 +30,6 @@ class Attention(nn.Module):
     def __init__(self, cfg: AttnConfig, d_model: int, *, device=None,
                  dtype=torch.bfloat16):
         super().__init__()
-        _check_supported(cfg)
         H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         kw = dict(device=device, dtype=dtype)
         self.wq = nn.Parameter(torch.empty(d_model, H * D, **kw))
@@ -58,19 +49,27 @@ def init(cfg: AttnConfig, d_model: int, *, generator: torch.Generator,
     return p
 
 
-def _project_qkv(p: Attention, cfg: AttnConfig, x, *, positions, eps=1e-6):
-    """Returns q [B,S,H,D], k,v [B,S,K,D] with rope + qk_norm applied."""
+def _project_qkv(p: Attention, cfg: AttnConfig, x, kv_src=None, *,
+                 positions, eps=1e-6):
+    """Returns q [B,Sq,H,D], k,v [B,Sk,K,D] with rope + qk_norm applied;
+    k and v come from ``kv_src`` when given (cross-attention)."""
     B, S, _ = x.shape
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv_in = x if kv_src is None else kv_src
+    Sk = kv_in.shape[1]
     q = (x @ p.wq).reshape(B, S, H, D)
-    k = (x @ p.wk).reshape(B, S, K, D)
-    v = (x @ p.wv).reshape(B, S, K, D)
+    k = (kv_in @ p.wk).reshape(B, Sk, K, D)
+    v = (kv_in @ p.wv).reshape(B, Sk, K, D)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, eps)
         k = rmsnorm(k, p.k_norm, eps)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if not cfg.cross and cfg.use_rope:    # cross-attn keys carry no rope
+        if cfg.mrope_sections is not None:
+            q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -128,21 +127,27 @@ def _chunked_core(q, k, v, mpos, *, causal, window, cap, scale=None,
 
 
 def forward(p: Attention, cfg: AttnConfig, x, *, positions, window=None,
-            eps=1e-6, use_kernel=False):
-    """Full-sequence attention (prefill)."""
+            kv_src=None, eps=1e-6, use_kernel=False):
+    """Full-sequence attention (prefill); with ``cfg.cross`` the keys
+    and values come from ``kv_src`` [B, Sk, d]."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions=positions, eps=eps)
+    q, k, v = _project_qkv(p, cfg, x, kv_src, positions=positions, eps=eps)
     win = window if window is not None else cfg.window
-    if use_kernel and cfg.causal:
+    # M-RoPE carries 3 position streams; masking uses the time stream
+    mpos = positions[0] if cfg.mrope_sections is not None else positions
+    if cfg.cross:
+        mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = core_attention(q, k, v, mask, cap=cfg.softcap)
+    elif use_kernel and cfg.causal:
         out = attn_ops.flash_attention(q, k, v, causal=True, window=win,
                                        softcap=cfg.softcap)
     elif S > CHUNK_THRESHOLD or B * cfg.n_heads * S * S > CHUNK_SCORES:
-        out = _chunked_core(q, k, v, positions, causal=cfg.causal,
+        out = _chunked_core(q, k, v, mpos, causal=cfg.causal,
                             window=win, cap=cfg.softcap,
                             chunk=_chunk_rows(B, cfg.n_heads, S))
     else:
-        mask = attn_mask(positions, positions, causal=cfg.causal,
-                         window=win)
+        mask = attn_mask(mpos, mpos, causal=cfg.causal, window=win)
         mask = torch.broadcast_to(mask, (B,) + mask.shape[-2:])
         out = core_attention(q, k, v, mask, cap=cfg.softcap)
     return out.reshape(B, S, -1) @ p.wo
@@ -172,6 +177,8 @@ def decode_step(p: Attention, cfg: AttnConfig, x, cache: dict, *,
     B = x.shape[0]
     t = cache["len"]
     positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    if cfg.mrope_sections is not None:
+        positions = positions[None].expand(3, B, 1)
     q, k, v = _project_qkv(p, cfg, x, positions=positions, eps=eps)
     ck, cv = cache["k"], cache["v"]
     ck[:, t] = k[:, 0]

@@ -1,32 +1,29 @@
 """Residual block assembly: (norm -> mixer -> [norm] -> residual) +
-(norm -> ff -> [norm] -> residual).
+[norm -> cross-attention -> residual] + (norm -> ff -> [norm] ->
+residual).
 
-The port runs the ``attn``, ``rwkv`` and ``mamba`` mixers and the
-``mlp``, ``cmix`` and ``moe`` feed-forwards; the others raise
-``NotImplementedError`` until their modules are ported (ROADMAP.md).
-The MoE prefill takes the dense dispatch and decode the capacity
-dispatch (factor 2), as in the reference.
+Mixers ``attn``, ``mla``, ``rwkv``, ``mamba``; feed-forwards ``mlp``,
+``cmix``, ``moe``; the cross-attention sublayer (whisper's decoder)
+attends to ``cross_src``, the encoder output.  The MoE prefill takes the
+dense dispatch and decode the capacity dispatch (factor 2), as in the
+reference.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
 
-from repro_torch.models import attention, mamba, mlp, moe, rwkv
+from repro_torch.models import attention, mamba, mla, mlp, moe, rwkv
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.config import BlockSpec, ModelConfig
 
-_NOT_PORTED = {
-    "mla": "the MLA mixer (deepseek-v3; ROADMAP.md Queue 1 item 10)",
-    "cross": "cross-attention (whisper; ROADMAP.md Queue 1 item 10)",
-}
 
-
-def check_supported(spec: BlockSpec) -> None:
-    for part in (spec.mixer, spec.ff, "cross" if spec.cross else None):
-        if part in _NOT_PORTED:
-            raise NotImplementedError(f"{_NOT_PORTED[part]} is not yet "
-                                      f"ported to repro_torch")
+def cross_config(cfg: ModelConfig):
+    """The cross-attention sublayer's config: the decoder's heads,
+    keys from the encoder output, every key live."""
+    return dataclasses.replace(cfg.attn, cross=True, causal=False)
 
 
 def _norm_param(cfg: ModelConfig, d: int, device) -> nn.Parameter:
@@ -36,8 +33,9 @@ def _norm_param(cfg: ModelConfig, d: int, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer: ``norm_mixer``, the mixer (``attn``, ``rwkv`` or
-    ``mamba``), ``norm_mixer_post`` (with post-block norms), ``norm_ff``,
+    """One layer: ``norm_mixer``, the mixer (``attn``, ``mla``, ``rwkv``
+    or ``mamba``), ``norm_cross`` and ``cross`` (with a cross-attention
+    sublayer), ``norm_mixer_post`` (with post-block norms), ``norm_ff``,
     the feed-forward (``mlp``, ``cmix`` or ``moe``), ``norm_ff_post``.
     With a ``generator`` the weights take the reference's init
     distributions; without one they are left uninitialised."""
@@ -45,7 +43,6 @@ class Block(nn.Module):
     def __init__(self, spec: BlockSpec, cfg: ModelConfig, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        check_supported(spec)
         d = cfg.d_model
         self.norm_mixer = _norm_param(cfg, d, device)
         if spec.mixer == "attn":
@@ -53,6 +50,11 @@ class Block(nn.Module):
                          if generator is None else
                          attention.init(cfg.attn, d, generator=generator,
                                         device=device))
+        elif spec.mixer == "mla":
+            self.mla = (mla.MLA(cfg.mla, d, device=device)
+                        if generator is None else
+                        mla.init(cfg.mla, d, generator=generator,
+                                 device=device))
         elif spec.mixer == "rwkv":
             self.rwkv = (rwkv.TimeMix(cfg.rwkv, d, device=device)
                          if generator is None else
@@ -63,6 +65,13 @@ class Block(nn.Module):
                           if generator is None else
                           mamba.init(cfg.mamba, d, generator=generator,
                                      device=device))
+        if spec.cross:
+            self.norm_cross = _norm_param(cfg, d, device)
+            ccfg = cross_config(cfg)
+            self.cross = (attention.Attention(ccfg, d, device=device)
+                          if generator is None else
+                          attention.init(ccfg, d, generator=generator,
+                                         device=device))
         if cfg.post_block_norm:
             self.norm_mixer_post = _norm_param(cfg, d, device)
         if spec.ff != "none":
@@ -116,14 +125,32 @@ def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache=None):
     return x + h
 
 
+def _cross(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cross_src):
+    """The cross-attention sublayer, where the block has one."""
+    if not spec.cross:
+        return x
+    if cross_src is None:
+        raise ValueError("a cross-attention block needs cross_src (the "
+                         "encoder output)")
+    h = _norm(cfg, x, p.norm_cross)
+    pos = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.int32,
+                      device=x.device)          # unused: no rope
+    return x + attention.forward(p.cross, cross_config(cfg), h,
+                                 positions=pos, kv_src=cross_src,
+                                 eps=cfg.norm_eps)
+
+
 def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
-            use_kernel=False):
+            cross_src=None, use_kernel=False):
     """Full-sequence block; x [B, S, d]."""
     h = _norm(cfg, x, p.norm_mixer)
     if spec.mixer == "attn":
         h = attention.forward(p.attn, cfg.attn, h, positions=positions,
                               window=spec.window, eps=cfg.norm_eps,
                               use_kernel=use_kernel)
+    elif spec.mixer == "mla":
+        h = mla.forward(p.mla, cfg.mla, h, positions=positions,
+                        eps=cfg.norm_eps, use_kernel=use_kernel)
     elif spec.mixer == "rwkv":
         h = rwkv.time_mix(p.rwkv, cfg.rwkv, h, use_kernel=use_kernel)
     elif spec.mixer == "mamba":
@@ -133,7 +160,7 @@ def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
         h = torch.zeros_like(h)
     if cfg.post_block_norm:
         h = _norm(cfg, h, p.norm_mixer_post)
-    return _ff(p, spec, cfg, x + h)
+    return _ff(p, spec, cfg, _cross(p, spec, cfg, x + h, cross_src))
 
 
 # ---------------------------------------------------------------------------
@@ -143,17 +170,20 @@ def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
 
 def init_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
                *, device=None, dtype=torch.bfloat16) -> dict:
-    """The layer's decode cache: ``attn`` (k/v in ``dtype``), the
-    ``rwkv`` state (``s`` f32, carries in ``dtype``) or the ``mamba``
+    """The layer's decode cache: ``attn`` (k/v in ``dtype``), ``mla``
+    (the latent ``ckv`` and rope key ``kr`` in ``dtype``), the ``rwkv``
+    state (``s`` f32, carries in ``dtype``) or the ``mamba``
     state (``h`` f32, the conv window in bf16, as the reference keeps
     it) and, for a channel mix, its own carry ``cmix["x_cm"]`` in
     ``dtype``, as the reference keeps ``cache["rwkv"]`` and
     ``cache["cmix"]`` apart."""
-    check_supported(spec)
     c = {}
     if spec.mixer == "attn":
         c["attn"] = attention.init_cache(cfg.attn, batch, max_len,
                                          device=device, dtype=dtype)
+    elif spec.mixer == "mla":
+        c["mla"] = mla.init_cache(cfg.mla, batch, max_len, device=device,
+                                  dtype=dtype)
     elif spec.mixer == "rwkv":
         c["rwkv"] = rwkv.init_state(cfg.rwkv, batch, cfg.d_model,
                                     device=device, dtype=dtype)
@@ -166,13 +196,17 @@ def init_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
     return c
 
 
-def decode(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache: dict):
+def decode(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache: dict, *,
+           cross_src=None):
     """One-token decode; x [B, 1, d]."""
     h = _norm(cfg, x, p.norm_mixer)
     if spec.mixer == "attn":
         h, cache["attn"] = attention.decode_step(
             p.attn, cfg.attn, h, cache["attn"], window=spec.window,
             eps=cfg.norm_eps)
+    elif spec.mixer == "mla":
+        h, cache["mla"] = mla.decode_step(p.mla, cfg.mla, h, cache["mla"],
+                                          eps=cfg.norm_eps)
     elif spec.mixer == "rwkv":
         h, cache["rwkv"] = rwkv.decode_time_mix(p.rwkv, cfg.rwkv, h,
                                                 cache["rwkv"])
@@ -184,4 +218,5 @@ def decode(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache: dict):
         h = torch.zeros_like(h)
     if cfg.post_block_norm:
         h = _norm(cfg, h, p.norm_mixer_post)
-    return _ff(p, spec, cfg, x + h, cache), cache
+    return _ff(p, spec, cfg, _cross(p, spec, cfg, x + h, cross_src),
+               cache), cache

@@ -56,6 +56,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _mrope_streams(sections: tuple[int, ...], half: int,
+                   device: torch.device) -> torch.Tensor:
+    """For each of the ``half`` rotary frequencies, the position stream
+    (0 = time, 1 = height, 2 = width) whose section holds it."""
+    sec = np.concatenate([[0], np.cumsum(np.asarray(sections))])
+    if sec[-1] != half:
+        raise ValueError(f"M-RoPE sections {sections} do not cover the "
+                         f"{half} rotary frequencies")
+    which = np.zeros(half, np.int64)
+    for i in range(len(sections)):
+        which[sec[i]: sec[i + 1]] = i
+    return torch.from_numpy(which).to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: three position streams (t, h, w) rotate
+    disjoint sections of the frequencies.  x: [..., S, H, D];
+    positions3: [3, ..., S].  Computed in f32, cast back once."""
+    d = x.shape[-1]
+    freqs = _rope_freqs_on(d, float(theta), x.device)           # [D/2]
+    which = _mrope_streams(tuple(int(s) for s in sections), d // 2,
+                           x.device)
+    p = torch.movedim(positions3, 0, -1).float()                # [..., S, 3]
+    ang = p[..., which] * freqs                                 # [..., S, D/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # masks
 # ---------------------------------------------------------------------------

@@ -1,4 +1,7 @@
-"""LM assembly: embed -> blocks -> final norm -> logits.
+"""LM assembly: embed -> blocks -> final norm -> logits; for an
+encoder-decoder (whisper) an encoder stack over precomputed frames whose
+output every cross-attention block reads; for a VLM backbone (qwen2-vl)
+precomputed patch embeddings in the leading rows and M-RoPE positions.
 
 The reference scans the homogeneous middle of the stack over parameters
 stacked on an ``n_periods`` axis; the port keeps one module per layer
@@ -10,36 +13,54 @@ their own dtype (bf16 with bf16 weights).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
 from repro_torch.models import blocks
 from repro_torch.models.common import dense_init_, rmsnorm, softcap
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import BlockSpec, ModelConfig
+
+_ENCODER_SPEC = BlockSpec(mixer="attn", ff="mlp")
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            "the encoder stack is not yet ported (whisper; ROADMAP.md "
-            "Queue 1 item 10)")
-    if cfg.vision_prefix:
-        raise NotImplementedError(
-            "the vision prefix is not yet ported (qwen2-vl; ROADMAP.md "
-            "Queue 1 item 10)")
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's own config (the reference's ``enc_cfg``): the
+    encoder's widths and heads, non-causal attention with rope."""
+    enc = cfg.encoder
+    enc_attn = dataclasses.replace(
+        cfg.attn, causal=False, n_heads=enc.n_heads, n_kv_heads=enc.n_heads,
+        head_dim=enc.d_model // enc.n_heads)
+    return dataclasses.replace(cfg, d_model=enc.d_model, d_ff=enc.d_ff,
+                               attn=enc_attn)
 
 
-class Model(nn.Module):
-    """Parameters ``embed`` [V, d], ``final_norm`` [d], ``lm_head`` [d, V]
-    (untied heads only) and ``layers.{i}.*`` (see ``blocks.Block``); the
-    module functions below run it.  Without a ``generator`` the weights
-    are left uninitialised (use the ``meta`` device to build a
-    skeleton)."""
+class Encoder(nn.Module):
+    """``layers.{i}`` (attention + MLP blocks) and ``final_norm``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _check_supported(cfg)
+        ecfg = encoder_config(cfg)
+        self.layers = nn.ModuleList(
+            blocks.Block(_ENCODER_SPEC, ecfg, device=device,
+                         generator=generator)
+            for _ in range(cfg.encoder.n_layers))
+        self.final_norm = nn.Parameter(torch.ones(
+            cfg.encoder.d_model, dtype=torch.bfloat16, device=device))
+
+
+class Model(nn.Module):
+    """Parameters ``embed`` [V, d], ``final_norm`` [d], ``lm_head`` [d, V]
+    (untied heads only), ``layers.{i}.*`` (see ``blocks.Block``) and, for
+    an encoder-decoder, ``encoder.*``; the module functions below run it.
+    Without a ``generator`` the weights are left uninitialised (use the
+    ``meta`` device to build a skeleton)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
         kw = dict(device=device, dtype=torch.bfloat16)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
                                               **kw))
@@ -51,6 +72,8 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(
             blocks.Block(spec, cfg, device=device, generator=generator)
             for spec in cfg.blocks())
+        if cfg.encoder is not None:
+            self.encoder = Encoder(cfg, device=device, generator=generator)
         if generator is not None:
             dense_init_(self.embed, generator, scale=1.0)
             if not cfg.tie_embeddings:
@@ -81,10 +104,37 @@ def from_state(cfg: ModelConfig, state: dict, *, device=None) -> Model:
     return m
 
 
-def embed_tokens(p: Model, cfg: ModelConfig, tokens):
+def positions_for(cfg: ModelConfig, S: int, device=None):
+    """The default prefill positions: [1, S], or [3, 1, S] (the three
+    M-RoPE streams alike) for M-RoPE."""
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :]
+    if cfg.attn is not None and cfg.attn.mrope_sections is not None:
+        return pos[None].expand(3, 1, S)
+    return pos
+
+
+def encode(p: Model, cfg: ModelConfig, frames):
+    """Whisper's encoder on precomputed frames [B, n_frames, d_enc]
+    (the conv front end is stubbed, as in the reference): non-causal
+    attention + MLP blocks, then ``encoder.final_norm``."""
+    ecfg = encoder_config(cfg)
+    x = frames
+    pos = torch.arange(frames.shape[1], dtype=torch.int32,
+                       device=frames.device)[None, :]
+    for layer in p.encoder.layers:
+        x = blocks.forward(layer, _ENCODER_SPEC, ecfg, x, positions=pos)
+    return rmsnorm(x, p.encoder.final_norm, cfg.norm_eps)
+
+
+def embed_tokens(p: Model, cfg: ModelConfig, tokens, vision_embeds=None):
+    """Token embeddings; for a VLM the leading ``vision_embeds.shape[1]``
+    rows are replaced by the precomputed patch embeddings."""
     x = p.embed[tokens]
     if cfg.gemma_norm:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.vision_prefix and vision_embeds is not None:
+        n_vis = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, n_vis:]], dim=1)
     return x
 
 
@@ -98,16 +148,23 @@ def _logits(p: Model, cfg: ModelConfig, x):
 
 
 def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
-            use_kernel=False):
-    """tokens [B, S] -> logits [B, S, V]."""
+            vision_embeds=None, encoder_frames=None, use_kernel=False):
+    """tokens [B, S] -> logits [B, S, V].  An encoder-decoder takes
+    ``encoder_frames`` [B, n_frames, d_enc]; a VLM may take
+    ``vision_embeds`` [B, n_vis, d]."""
     B, S = tokens.shape
-    x = embed_tokens(p, cfg, tokens)
+    x = embed_tokens(p, cfg, tokens, vision_embeds)
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None, :]
+        positions = positions_for(cfg, S, tokens.device)
+    cross_src = None
+    if cfg.encoder is not None:
+        if encoder_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             f"encoder_frames")
+        cross_src = encode(p, cfg, encoder_frames)
     for layer, spec in zip(p.layers, cfg.blocks()):
         x = blocks.forward(layer, spec, cfg, x, positions=positions,
-                           use_kernel=use_kernel)
+                           cross_src=cross_src, use_kernel=use_kernel)
     return _logits(p, cfg, x)
 
 
@@ -119,22 +176,23 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None, dtype=torch.bfloat16) -> dict:
     """One cache per layer: k/v [batch, max_len, K, D] in ``dtype`` (bf16
-    as in the reference) for attention layers; for rwkv layers the
-    recurrent state (``s`` f32, the token-shift carries in ``dtype``;
-    see ``rwkv.init_state``)."""
-    _check_supported(cfg)
+    as in the reference) for attention layers, the latents for MLA
+    layers; for rwkv layers the recurrent state (``s`` f32, the
+    token-shift carries in ``dtype``; see ``rwkv.init_state``)."""
     return {"layers": [blocks.init_cache(spec, cfg, batch, max_len,
                                          device=device, dtype=dtype)
                        for spec in cfg.blocks()]}
 
 
-def decode_step(p: Model, cfg: ModelConfig, cache: dict, tokens):
+def decode_step(p: Model, cfg: ModelConfig, cache: dict, tokens, *,
+                cross_src=None):
     """tokens [B, 1] -> (logits [B, 1, V], cache'); the caches are
-    updated in place."""
+    updated in place.  ``cross_src`` is the encoder output for an
+    encoder-decoder (``encode``)."""
     x = embed_tokens(p, cfg, tokens)
     layers = []
     for layer, spec, lc in zip(p.layers, cfg.blocks(), cache["layers"]):
-        x, lc = blocks.decode(layer, spec, cfg, x, lc)
+        x, lc = blocks.decode(layer, spec, cfg, x, lc, cross_src=cross_src)
         layers.append(lc)
     return _logits(p, cfg, x), {"layers": layers}
 

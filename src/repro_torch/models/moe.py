@@ -1,9 +1,11 @@
 """Mixture-of-experts feed-forward.
 
-Routing is softmax top-k with normalized top-k scores (jamba).  The
-reference's sigmoid routing and shared experts serve deepseek-v3 and
-moonshot, which are not yet ported: a config that asks for them raises
-``NotImplementedError``.
+Routing follows the arch configs: softmax top-k (jamba) or sigmoid
+scores whose top-k is picked on ``scores + router_bias`` and weighted by
+the unbiased scores (deepseek-v3, moonshot), normalized and scaled by
+``route_scale``; plus optional shared experts, one gated MLP of width
+``d_expert * n_shared`` that sees every token (deepseek: 1 shared + 256
+routed; moonshot: 2 + 64).
 
 Two compute paths, as in the reference:
   * ``forward`` — dense dispatch: every held expert multiplies every
@@ -21,7 +23,9 @@ A layer may hold only experts [lo, hi) of ``cfg.n_experts``
 routes over all experts, computes only its own experts' part of the
 result and adds nothing for the others (their ranks would; on one card
 the layer runs without the exchange).  The capacity is that of the
-whole layer.  The load-balance ``aux_loss`` serves training, which is
+whole layer.  The shared experts are added only by the share that holds
+expert 0 (``lo == 0``), so that summing the ranks' parts counts them
+once.  The load-balance ``aux_loss`` serves training, which is
 not ported.
 """
 from __future__ import annotations
@@ -37,16 +41,14 @@ DENSE_CHUNK = 1024          # token rows per dense-dispatch chunk
 
 
 class MoE(nn.Module):
-    """Parameters ``router`` [d, E] f32 (all ``n_experts``) and the held
+    """Parameters ``router`` [d, E] f32 (all ``n_experts``), the held
     experts' stacks ``w_gate`` / ``w_up`` [E_held, d, f] and ``w_down``
-    [E_held, f, d] in bf16."""
+    [E_held, f, d] in bf16; with sigmoid routing ``router_bias`` [E] f32;
+    with shared experts ``shared`` (an ``mlp.MLP`` of width f *
+    ``n_shared``), held whole by every share."""
 
     def __init__(self, cfg: MoEConfig, d_model: int, *, device=None):
         super().__init__()
-        if cfg.router != "softmax" or cfg.n_shared:
-            raise NotImplementedError(
-                "sigmoid routing and shared experts (deepseek-v3, moonshot) "
-                "are not yet ported (ROADMAP.md Queue 1 item 10)")
         lo, hi = cfg.held_range()
         E, f = cfg.n_experts, cfg.d_expert
         bf = dict(device=device, dtype=torch.bfloat16)
@@ -55,6 +57,11 @@ class MoE(nn.Module):
         self.w_gate = nn.Parameter(torch.empty(hi - lo, d_model, f, **bf))
         self.w_up = nn.Parameter(torch.empty(hi - lo, d_model, f, **bf))
         self.w_down = nn.Parameter(torch.empty(hi - lo, f, d_model, **bf))
+        if cfg.router == "sigmoid":
+            self.router_bias = nn.Parameter(torch.zeros(
+                E, device=device, dtype=torch.float32))
+        if cfg.n_shared:
+            self.shared = mlp.MLP(d_model, f * cfg.n_shared, device=device)
 
 
 def init(cfg: MoEConfig, d_model: int, *, generator: torch.Generator,
@@ -62,7 +69,8 @@ def init(cfg: MoEConfig, d_model: int, *, generator: torch.Generator,
     """The reference's distributions: the router normal * d^-1/2 drawn in
     bf16 and kept in f32; each expert stack normal * E^-1/2, the
     reference's fan-in of a stacked [E, ...] tensor, with E the published
-    ``n_experts`` even when fewer are held."""
+    ``n_experts`` even when fewer are held; ``router_bias`` zeros; the
+    shared MLP normal * fan_in^-1/2."""
     p = MoE(cfg, d_model, device=device)
     with torch.no_grad():
         r = torch.empty(p.router.shape, device=p.router.device,
@@ -70,14 +78,24 @@ def init(cfg: MoEConfig, d_model: int, *, generator: torch.Generator,
         p.router.copy_(dense_init_(r, generator, scale=d_model ** -0.5))
     for w in (p.w_gate, p.w_up, p.w_down):
         dense_init_(w, generator, fan_in=cfg.n_experts)
+    if cfg.n_shared:
+        for w in p.shared.parameters():
+            dense_init_(w, generator)
     return p
 
 
 def route(p: MoE, cfg: MoEConfig, x):
     """x: [T, d] -> (weights [T, k] in x's dtype, idx [T, k], probs
-    [T, E]); the router product in f32."""
-    scores = torch.softmax(x.float() @ p.router, dim=-1)
-    idx = torch.topk(scores, cfg.top_k, dim=-1).indices
+    [T, E]); the router product and the scores in f32.  Sigmoid routing
+    selects on ``scores + router_bias`` (the bias only biases the
+    choice) and gathers the weights from the unbiased scores."""
+    logits = x.float() @ p.router
+    if cfg.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+        sel = scores + p.router_bias
+    else:
+        scores = sel = torch.softmax(logits, dim=-1)
+    idx = torch.topk(sel, cfg.top_k, dim=-1).indices
     w = torch.gather(scores, -1, idx)
     if cfg.norm_topk:
         w = w / (w.sum(-1, keepdim=True) + 1e-20)
@@ -89,6 +107,14 @@ def _held_experts(p: MoE, be, act):
     [E_held, rows, d]."""
     h = mlp.ACT[act](torch.matmul(be, p.w_gate)) * torch.matmul(be, p.w_up)
     return torch.matmul(h, p.w_down)
+
+
+def _add_shared(p: MoE, cfg: MoEConfig, out, xt, act, lo: int):
+    """``out`` plus the shared experts' part, added by the share that
+    holds expert 0 only."""
+    if cfg.n_shared and lo == 0:
+        out = out + mlp.forward(p.shared, xt, act)
+    return out
 
 
 def forward(p: MoE, cfg: MoEConfig, x, act: str = "silu"):
@@ -105,7 +131,7 @@ def forward(p: MoE, cfg: MoEConfig, x, act: str = "silu"):
         rows = slice(r0, r0 + DENSE_CHUNK)
         y = _held_experts(p, xt[None, rows], act)       # [E_held, r, d]
         out[rows] = torch.einsum("etd,te->td", y, cw[rows])
-    return out.reshape(B, S, d)
+    return _add_shared(p, cfg, out, xt, act, lo).reshape(B, S, d)
 
 
 def forward_dropless(p: MoE, cfg: MoEConfig, x, act: str = "silu",
@@ -133,4 +159,4 @@ def forward_dropless(p: MoE, cfg: MoEConfig, x, act: str = "silu",
     ye = _held_experts(p, buckets[:n].reshape(hi - lo, C, d), act)
     flat_y = torch.cat([ye.reshape(n, d), xt.new_zeros((1, d))])
     out = torch.einsum("tkd,tk->td", flat_y[dest].reshape(T, K, d), w)
-    return out.reshape(B, S, d)
+    return _add_shared(p, cfg, out, xt, act, lo).reshape(B, S, d)

@@ -18,8 +18,8 @@ from repro_torch.models import model as M
 @dataclasses.dataclass(frozen=True)
 class ServeOptions:
     use_kernel: bool = False
-    # the explicit expert-parallel dispatch is not yet ported
-    # (ROADMAP.md); anything but None raises
+    # the explicit expert-parallel dispatch waits for the training
+    # slice (ROADMAP.md Queue 1 item 8); anything but None raises
     ep_options: object = None
     # chaos-resilient dispatch collectives: as in the reference, only the
     # expert-parallel dispatch takes it; these one-device steps run no
@@ -31,7 +31,7 @@ def _check(opts: ServeOptions) -> None:
     if opts.ep_options is not None:
         raise NotImplementedError(
             "ep_options: the expert-parallel dispatch is not yet ported "
-            "(ROADMAP.md Queue 1 item 10)")
+            "(ROADMAP.md Queue 1 item 8)")
     from repro_torch.core.resilient import resolve_resilience
     resolve_resilience(opts.resilience)     # a bad option fails here
 
@@ -45,31 +45,37 @@ def init_serve_cache(cfg, batch: int, max_len: int, *, device=None,
 
 
 def make_prefill_step(cfg, opts: ServeOptions) -> Callable:
-    """(params, tokens [B, S]) -> logits [B, S, V]: the full-sequence
-    forward used for prompt processing; with ``opts.use_kernel`` each
-    attention layer runs the flash kernel, each rwkv layer the wkv6
-    kernel and each mamba layer the selective-scan kernel.  MoE layers
-    take the dense dispatch."""
+    """(params, tokens [B, S], *, vision_embeds=None, encoder_frames=None)
+    -> logits [B, S, V]: the full-sequence forward used for prompt
+    processing, taking what the reference's batch dict carries beside
+    the tokens (an encoder-decoder's frames, a VLM's patch embeddings);
+    with ``opts.use_kernel`` each causal attention and MLA layer runs the
+    flash kernel, each rwkv layer the wkv6 kernel and each mamba layer
+    the selective-scan kernel.  MoE layers take the dense dispatch."""
     _check(opts)
 
     @torch.no_grad()
-    def prefill(params, tokens):
-        return M.forward(params, cfg, tokens, use_kernel=opts.use_kernel)
+    def prefill(params, tokens, *, vision_embeds=None, encoder_frames=None):
+        return M.forward(params, cfg, tokens, vision_embeds=vision_embeds,
+                         encoder_frames=encoder_frames,
+                         use_kernel=opts.use_kernel)
 
     return prefill
 
 
 def make_decode_step(cfg, opts: ServeOptions) -> Callable:
-    """(params, cache, tokens [B, 1]) -> (next_tokens [B, 1], cache',
-    logits [B, V]).  The step's logits come back too, so a caller can
-    check them without a second forward.  MoE layers take the capacity
-    dispatch (factor 2), which drops a (token, slot) pair once its
-    expert's bucket is full."""
+    """(params, cache, tokens [B, 1][, cross_src]) -> (next_tokens [B, 1],
+    cache', logits [B, V]).  ``cross_src`` is the precomputed encoder
+    output (``models.model.encode``), required for an encoder-decoder.
+    The step's logits come back too, so a caller can check them without
+    a second forward.  MoE layers take the capacity dispatch (factor 2),
+    which drops a (token, slot) pair once its expert's bucket is full."""
     _check(opts)
 
     @torch.no_grad()
-    def decode(params, cache, tokens):
-        logits, cache = M.decode_step(params, cfg, cache, tokens)
+    def decode(params, cache, tokens, cross_src=None):
+        logits, cache = M.decode_step(params, cfg, cache, tokens,
+                                      cross_src=cross_src)
         last = logits[:, -1]
         nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt[:, None], cache, last

@@ -832,6 +832,55 @@ def test_flash_attention_wgmma_ragged(cuda_device, Sq, Sk, D):
                                    msg=lambda m: f"{kw}: {m}")
 
 
+@pytest.mark.parametrize("D,H,K,pad_v", [(192, 128, 128, 64),
+                                         (64, 12, 12, 0), (128, 28, 4, 0)])
+def test_flash_attention_wgmma_model_shapes(cuda_device, D, H, K, pad_v):
+    """The shapes the remaining archs give the kernel, bf16, each call on
+    the Hopper body: MLA's head dim 192 (three whole 64-column boxes in
+    the 256-wide tiles) with v's last ``pad_v`` columns zero, as
+    deepseek-v3 pads v from 128; whisper's decoder (12 heads of 64);
+    qwen2-vl's GQA group 7 (28 q heads over 4 kv heads).  The output's
+    padded columns stay exact zeros."""
+    rng = np.random.default_rng(D + H + K)
+    q, k, v = _attn_inputs(rng, cuda_device, torch.bfloat16, 1, 256, 256, H,
+                           K, D)
+    if pad_v:
+        v[..., D - pad_v:] = 0
+    variants = [dict(causal=True), dict(causal=True, scale=D ** -0.5),
+                dict(causal=False)]
+    for kw in variants:
+        got = _on_body("wgmma", lambda: flash_attention_bshd(q, k, v, **kw))
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL[torch.bfloat16],
+                                   msg=lambda m: f"{kw}: {m}")
+        if pad_v:
+            assert not got[..., D - pad_v:].any()
+
+
+def test_flash_attention_mla_call_on_the_wgmma_body(cuda_device):
+    """``models.mla``'s kernel path at deepseek's head widths (nope 128,
+    rope 64, v 128) on up-projected heads: k_rope repeated over the
+    heads by ``torch.cat`` (an ``expand`` view's zero head stride would
+    send it to the CUDA-core body), one launch on the wgmma body, within
+    2e-2 of the plain ``_attend`` core."""
+    from repro_torch.models import mla
+    from repro_torch.models.config import MLAConfig
+    cfg = MLAConfig(q_lora_rank=64, kv_lora_rank=64, qk_nope_head_dim=128,
+                    qk_rope_head_dim=64, v_head_dim=128, n_heads=8)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    layer = mla.init(cfg, 256, generator=g, device=cuda_device)
+    x = torch.randn((1, 256, 256), generator=g, device=cuda_device,
+                    dtype=torch.float32).to(torch.bfloat16)
+    pos = torch.arange(256, device=cuda_device)[None]
+    with torch.no_grad():
+        lat = mla._latents(layer, cfg, x, pos, 1e-6)
+        got = _on_body("wgmma", lambda: mla._kernel_core(layer, cfg, *lat))
+        S = 256
+        want = mla._attend(layer, cfg, *lat, torch.ones(
+            (S, S), dtype=torch.bool, device=cuda_device).tril()[None])
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
 def test_flash_attention_wgmma_gather_long(cuda_device):
     """The gather prologue on the Hopper body at 1024 rows, 1/8 of them
     dead (exact zeros)."""

@@ -158,8 +158,7 @@ def test_selector_matches_reference_per_size_bucket(policy, topo_name):
                 coll, nbytes)
 
 
-def test_selector_tuned_and_neighbor_raise_until_ported(tmp_path,
-                                                         monkeypatch):
+def test_selector_tuned_without_table_equals_model(tmp_path, monkeypatch):
     """The tuner is ported: "tuned" no longer raises.  With no persisted
     table it falls back to the model's choice, for the dense collectives
     and for the neighbor mode of a multi-pod topology (the tables

@@ -1,6 +1,6 @@
 """The port's dense models and serving path against the JAX package's.
 
-Each of the four ported smoke configs gets the reference's seeded
+Each of the four dense smoke configs gets the reference's seeded
 ``init_params`` weights through ``convert.params_from_jax``, so both
 packages run the same numbers.  Tolerances:
 
@@ -40,9 +40,8 @@ from repro.models import model as JM
 from repro_torch import configs, cuda
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as launcher
-from repro_torch.models import attention, blocks
+from repro_torch.models import attention
 from repro_torch.models import model as M
-from repro_torch.models.config import BlockSpec, MoEConfig
 from repro_torch.serve import (ServeOptions, init_serve_cache,
                                make_decode_step, make_prefill_step)
 
@@ -241,42 +240,47 @@ def test_launcher_cuda_without_card_fails_loudly(monkeypatch):
         launcher.main(["--arch", "smollm-360m", "--smoke"])
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCHS
-                                  if a not in configs.PORTED])
-def test_unported_archs_raise_key_error(arch):
-    for get in (configs.get_config, configs.get_smoke):
-        with pytest.raises(KeyError, match="not yet ported.*ROADMAP"):
-            get(arch)
-    with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("no-such-arch")
+def test_unknown_arch_raises_key_error():
+    """Every arch of the reference's registry is ported; a name outside
+    it still raises."""
+    assert configs.ARCHS == list(jconfigs.ARCHS)
+    for get in (configs.get_config, configs.get_smoke,
+                configs.get_one_card):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get("no-such-arch")
+    with pytest.raises(KeyError, match="no one-card cut"):
+        configs.get_one_card("smollm-360m")
 
 
-def test_unported_modules_raise_not_implemented():
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_param_count_equals_reference(arch):
+    """The port's model on the meta device counts what the reference's
+    ``count_params`` does, for every arch at its published size."""
+    from repro.models.model import count_params as jcount
+    assert M.count_params(configs.get_config(arch)) == \
+        jcount(jconfigs.get_config(arch))
+
+
+def test_shape_cells_equal_reference():
+    from repro.configs import shapes as jshapes
+    from repro_torch.configs import shapes
+    assert shapes.cells() == jshapes.cells()
+    assert shapes.LONG_OK == jshapes.LONG_OK
+    assert {k: dataclasses.astuple(v) for k, v in shapes.SHAPES.items()} \
+        == {k: dataclasses.astuple(v) for k, v in jshapes.SHAPES.items()}
+
+
+def test_ep_options_raise_and_resilience_is_accepted():
+    """The expert-parallel dispatch waits for the training slice, so
+    ``ep_options`` raises; ``resilience`` is accepted (it reaches only
+    that dispatch, as in the reference) and a bad option still fails;
+    a state that does not fit the model is refused."""
     cfg = configs.get_smoke("qwen3-14b")
-    for spec in (BlockSpec("mla", "mlp"),
-                 BlockSpec("attn", "mlp", cross=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocks.Block(spec, cfg, device="meta")
-    # the MoE block runs softmax routing (jamba); deepseek's sigmoid
-    # routing with shared experts waits
-    sigmoid = dataclasses.replace(cfg, moe=MoEConfig(
-        8, 2, 16, n_shared=1, router="sigmoid", route_scale=2.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blocks.Block(BlockSpec("attn", "moe"), sigmoid, device="meta")
-    for attn_cfg in (dataclasses.replace(cfg.attn, cross=True),
-                     dataclasses.replace(cfg.attn,
-                                         mrope_sections=(2, 3, 3))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attention.Attention(attn_cfg, cfg.d_model, device="meta")
-    with pytest.raises(NotImplementedError, match="vision"):
-        M.Model(dataclasses.replace(cfg, vision_prefix=4), device="meta")
     opts = ServeOptions(ep_options=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_prefill_step(cfg, opts)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_decode_step(cfg, opts)
-    # resilience is accepted (it reaches only the expert-parallel
-    # dispatch, as in the reference); a bad option still fails
     make_prefill_step(cfg, ServeOptions(resilience="canary"))
     make_decode_step(cfg, ServeOptions(resilience="canary"))
     with pytest.raises(ValueError, match="resilience preset"):

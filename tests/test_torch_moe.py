@@ -224,11 +224,3 @@ def test_dense_init_fan_in():
 def test_held_range_rejects_bad_ranges(held):
     with pytest.raises(ValueError, match="held experts"):
         moe.MoE(MoEConfig(16, 2, 8, held=held), 8, device="meta")
-
-
-@pytest.mark.parametrize("kw", [dict(router="sigmoid"), dict(n_shared=1)])
-def test_unported_routing_raises(kw):
-    """Sigmoid routing and shared experts (deepseek-v3, moonshot) wait
-    for their archs."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        moe.MoE(MoEConfig(8, 2, 8, **kw), 8, device="meta")

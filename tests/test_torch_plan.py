@@ -205,8 +205,8 @@ def test_select_neighbor_matches_reference(n, rpp, policy):
             assert want == got, (seed, eb)
 
 
-def test_select_neighbor_tuned_raises_until_the_tuner(tmp_path,
-                                                       monkeypatch):
+def test_select_neighbor_tuned_without_table_equals_model(tmp_path,
+                                                          monkeypatch):
     """The tuner is ported: the tuned mode no longer raises.  With no
     persisted table it is the model's choice, as the reference's; one
     pod needs no table (both modes compile identically)."""
