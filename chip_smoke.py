@@ -212,6 +212,37 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              archs, MLA's bound at its own 192/128 split (the padded
              call's beside it).
 
+8. training — phase (T), after the served models are freed: (1)
+             ``launch.train.main`` for smollm-360m at full width and depth
+             (B 8 x S 2048, remat, checkpoints every 10 in a temporary
+             directory): counters reset, 24 steps, counters read (64 flash
+             launches a step, all wgmma: 32 layers x the forward and the
+             remat recompute), every loss finite and the last three's mean
+             below the first three's; ms a step (CUDA events, median of
+             steps 5-20), tokens/s and peak memory printed; then, as after
+             a crash past step 20's checkpoint, the step-24 checkpoint
+             removed and the same command run again: it must start at 20
+             with the first run's last 4 losses exactly; last, the host's
+             time to issue a step at B 1 x S 128, where the card keeps up;
+             (2) the same config cut to 4 layers, one ``lm_loss`` +
+             backward with the flash kernel and with the plain attention:
+             in bf16 with remat, each of the 8 flash calls on the wgmma
+             body within 2e-2 of ``flash_attention_plain`` on its q/k/v
+             (and over its last quarter of rows), the loss within 2e-2;
+             in f32 (the CUDA-core body) the loss within 1e-5, each
+             gradient within 1e-4 (rel-L2); (3) the explicit-DP sync
+             at 8 data ranks simulated on the card: one batch's 8
+             per-row sum-loss gradients (f32, 11.6 GB) in the 4 buckets
+             ``dp_allreduce`` cuts, through ``KernelTransport.run_global``
+             for ``ring_rs_ag`` and ``hierarchical`` on ``Topology(8,
+             4)``: one launch a bucket (body printed), bitwise the plain
+             version, every rank alike, ms beside the bytes bound; the
+             synced mean within 2e-2 (rel-L2) of the one-device gradient
+             of the same weights in f32; (4) one dropless step of
+             moonshot-v1-16b-a3b's layers 0-2 at B 2 x S 2048: loss,
+             gradient norm and each MoE layer's ``aux_loss`` finite; then
+             3 more steps, their median ms, and the peak memory printed.
+
 The last two lines of standard output are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, the script exits non-zero and prints no
@@ -322,9 +353,21 @@ def main() -> int:
                            early["wkv6_split"])
     kernels += mamba_scan_timing(torch, jamba_served, scan_err,
                                  early["mamba_scan"])
-    print(f"phases of the remaining archs (s): "
-          f"{ {a['name']: round(a['seconds'], 2) for a in archs} }; whole "
-          f"run {time.perf_counter() - t_run:.2f} s", flush=True)
+    arch_s = {a["name"]: round(a["seconds"], 2) for a in archs}
+    # the served models are no longer needed: free them for training
+    del served, gathered, rwkv_served, jamba_served, early, archs, cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = training(torch, dev)
+    flash["launches_by_model"][f"{TRAIN_ARCH}-train-step"] = \
+        trained["launcher"]["flash_per_step"]
+    flash["training"] = {k: trained["launcher"][k] for k in (
+        "flash_launches", "flash_per_step", "ms_per_step", "tokens_per_s",
+        "host_issue_ms_b1_s128", "peak_gb")}
+    transport["training_launches"] = trained["sync"]["launches"]
+    transport["training_sync"] = trained["sync"]["rows"]
+    print(f"phases of the remaining archs (s): {arch_s}; whole run "
+          f"{time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3767,6 +3810,433 @@ def arch_attention_timing(torch, served) -> dict:
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
           f"[{note}]", flush=True)
     return row
+
+
+# ---------------------------------------------------------------------------
+# training: the launcher, kernel against plain on the training path, the
+# explicit-DP gradient sync at full size, one MoE step
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "smollm-360m"
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--batch", "8", "--seq", "2048",
+              "--log-every", "5"]
+TRAIN_STEPS, RESUME_AT = 24, 20
+# kernel against plain on the training path: the reference's model
+# tolerance of the forward (3e-5 measured) carried through the same plain
+# backward
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-5, 1e-4
+# the explicit-DP sync: 8 data ranks simulated on the card, 4 buckets
+SYNC_RANKS, SYNC_BUCKETS = 8, 4
+SYNC_ALGOS = ("ring_rs_ag", "hierarchical")
+SYNC_REL = 2e-2                  # bf16 grads (tests/test_train_step.py:52)
+MOE_ARCH, MOE_PERIODS, MOE_BATCH = "moonshot-v1-16b-a3b", 2, (2, 2048)
+MOE_TIMED = 3
+
+
+def _launches(cuda) -> dict:
+    return {"flash": dict(cuda.LAUNCHES)["flash_attention"],
+            "transport": dict(cuda.LAUNCHES)["schedule_exec"],
+            "bodies": dict(cuda.FLASH_BODIES)}
+
+
+def training(torch, dev) -> dict:
+    """Phase (T).  Returns the counts and times for the kernels line."""
+    t0 = time.perf_counter()
+    out = {"launcher": train_launcher(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parity"] = train_parity(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sync"] = train_sync(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe"] = train_moe(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"training: phase {out['seconds']:.2f} s", flush=True)
+    return out
+
+
+def train_launcher(torch, dev) -> dict:
+    """(T1) ``launch.train.main`` at full width and depth: 24 steps with
+    checkpoints every 10, counters reset just before and read just
+    after; then, as after a crash past step 20's checkpoint, the later
+    checkpoint removed and the same command run again: it must resume
+    at 20 with the first run's last 4 losses.  Last, the same width at
+    B 1 x S 128, where the card keeps up with the host: the host's own
+    time to issue a step."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs, cuda
+    from repro_torch.checkpoint import committed_steps
+    from repro_torch.launch import train
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    n_attn = sum(1 for s in cfg.blocks() if s.mixer == "attn")
+    want_flash = 2 * n_attn            # the forward and the remat recompute
+    argv = TRAIN_ARGS + ["--steps", str(TRAIN_STEPS)]
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as d:
+        ck = ["--ckpt-dir", d, "--ckpt-every", "10"]
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        a = train.main(argv + ck)
+        torch.cuda.synchronize()
+        counts = _launches(cuda)
+        cut = [s for s in committed_steps(d) if s > RESUME_AT]
+        for s in cut:
+            shutil.rmtree(os.path.join(d, f"step_{s:08d}"))
+        b = train.main(argv + ck)
+    _require(len(a.losses) == TRAIN_STEPS and all(
+        math.isfinite(v) for v in a.losses), f"training losses {a.losses}")
+    first, last = np.mean(a.losses[:3]), np.mean(a.losses[-3:])
+    _require(last < first, f"training: loss did not decrease "
+                           f"({first:.4f} -> {last:.4f})")
+    per_step = counts["flash"] / TRAIN_STEPS
+    print(f"training | {TRAIN_ARCH} ({model_params(cfg):,} parameters), "
+          f"B 8 x S 2048, remat on: flash launches {counts['flash']} in "
+          f"{TRAIN_STEPS} steps = {per_step:g} a step (the layer structure "
+          f"gives {n_attn} attention layers x 2 = {want_flash}), bodies "
+          f"{counts['bodies']}, transport launches {counts['transport']}",
+          flush=True)
+    _require(counts["flash"] == want_flash * TRAIN_STEPS,
+             f"training: {counts['flash']} flash launches, want "
+             f"{want_flash} a step")
+    _require(counts["bodies"]["wgmma"] == counts["flash"],
+             "training: a flash launch did not take the wgmma body")
+    ms = statistics.median(a.step_ms[4:20])      # steps 5-20
+    tok_s = 8 * 2048 / (ms / 1e3)
+    print(f"training | ms per step (CUDA events, median of steps 5-20) "
+          f"{ms:.3f}, tokens/s {tok_s:.0f}, host ms from a step's call to "
+          f"its return {statistics.median(a.host_ms[4:20]):.3f} (the "
+          f"launch queue full: it waits for the card), peak memory "
+          f"{a.peak_bytes / 1e9:.3f} GB, losses "
+          f"{[round(v, 4) for v in a.losses]}", flush=True)
+    _require(b.start_step == RESUME_AT
+             and len(b.losses) == TRAIN_STEPS - RESUME_AT,
+             f"resume: started at {b.start_step} with {len(b.losses)} "
+             f"steps (checkpoints past {RESUME_AT} removed: {cut})")
+    _require(b.losses == a.losses[RESUME_AT:],
+             f"resumed losses {b.losses} != the first run's "
+             f"{a.losses[RESUME_AT:]}")
+    print(f"training | checkpoints {cut} removed, the same command resumed "
+          f"at step {b.start_step}: losses {b.losses} equal to the first "
+          f"run's steps {RESUME_AT + 1}-{TRAIN_STEPS}", flush=True)
+    small = train.main(TRAIN_ARGS[:2] + ["--batch", "1", "--seq", "128",
+                                         "--steps", "8", "--log-every",
+                                         "8"])
+    issue = statistics.median(small.host_ms[2:])
+    small_ms = statistics.median(small.step_ms[2:])
+    print(f"training | host ms to issue a step at B 1 x S 128, full width "
+          f"(median of steps 3-8): {issue:.3f}, its device time (CUDA "
+          f"events) {small_ms:.3f}", flush=True)
+    return {"flash_launches": counts["flash"], "flash_per_step": per_step,
+            "ms_per_step": ms, "tokens_per_s": tok_s,
+            "host_issue_ms_b1_s128": issue, "peak_gb": a.peak_bytes / 1e9,
+            "losses": a.losses, "resumed": b.losses}
+
+
+def model_params(cfg) -> int:
+    from repro_torch.models import model as M
+    return M.count_params(cfg)
+
+
+def _rel_l2(torch, a, b) -> float:
+    return float((a.double() - b.double()).norm()
+                 / (b.double().norm() + 1e-30))
+
+
+def train_parity(torch, dev) -> dict:
+    """(T2) One ``lm_loss`` + backward at full width, depth cut to 4
+    layers, with the flash kernel and with the plain attention: (a) in
+    bf16 with remat, as the launcher trains: each of the kernel's 8
+    calls (4 forward, 4 recompute), all on the wgmma body, held against
+    ``flash_attention_plain`` on the same q/k/v at the bf16 tolerance and
+    over its last quarter of rows; the loss held at the same tolerance,
+    the gradients' rel-L2 reported; (b) in f32, on the CUDA-core body
+    (f32 takes it): loss and gradients held."""
+    from repro_torch import configs, cuda
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.kernel import flash_attention_plain
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), n_periods=4)
+    n_attn = sum(1 for s in cfg.blocks() if s.mixer == "attn")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    model = M.init_params(cfg, generator=g, device=dev)      # bf16
+    batch = DataPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=2048, global_batch=8)).batch(
+        0, device=dev)
+    tol = ATTN_TOL["bfloat16"]
+    errs, late, shapes = [], [], set()
+    real_flash = attn_ops.flash_attention
+
+    def flash(q, k, v, *args, **kw):
+        out = real_flash(q, k, v, *args, **kw)
+        fkw = _flash_kw(real_flash, (q, k, v) + args, kw)
+        what = (f"training bf16 flash call {len(errs)} "
+                f"({'forward' if len(errs) < n_attn else 'recompute'})")
+        with torch.no_grad():
+            want = flash_attention_plain(q.detach(), k.detach(),
+                                         v.detach(), **fkw)
+            errs.append(_close(torch, out.detach(), want, tol, tol, what))
+            late.append(_late_rows(torch, out.detach(), want, what))
+        shapes.add((tuple(q.shape), tuple(k.shape), str(q.dtype)))
+        return out
+
+    def loss_and_grads(m, kernel, remat):
+        ps = list(m.parameters())
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        loss = M.lm_loss(m, cfg, batch["tokens"], batch["labels"],
+                         use_kernel=kernel, remat=remat)
+        grads = torch.autograd.grad(loss, ps)
+        torch.cuda.synchronize()
+        return (loss.detach(), grads, dict(cuda.LAUNCHES),
+                dict(cuda.FLASH_BODIES))
+
+    def compare(res, tag):
+        (lk, gk, _, _), (lp, gp, npl, _) = res[True], res[False]
+        _require(npl["flash_attention"] == 0,
+                 f"training parity {tag}: the plain run launched flash")
+        loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+        rels = {n: _rel_l2(torch, a, b) for (n, _), a, b in
+                zip(model.named_parameters(), gk, gp)}
+        return loss_err, rels
+
+    attn_ops.flash_attention = flash
+    try:
+        k16 = loss_and_grads(model, True, True)
+    finally:
+        attn_ops.flash_attention = real_flash
+    res16 = {True: k16, False: loss_and_grads(model, False, True)}
+    _, _, n16, b16 = k16
+    print(f"training parity | {TRAIN_ARCH} 4 layers bf16, remat, B 8 x S "
+          f"2048: flash launches {n16['flash_attention']}, bodies {b16}, "
+          f"calls {sorted(shapes)}", flush=True)
+    _require(n16["flash_attention"] == 2 * n_attn
+             and b16 == {"wgmma": 2 * n_attn, "cuda_cores": 0}
+             and len(errs) == 2 * n_attn,
+             f"training parity bf16: {n16['flash_attention']} launches, "
+             f"bodies {b16}, {len(errs)} checks; want {2 * n_attn} on "
+             f"wgmma")
+    loss16, rels16 = compare(res16, "bf16")
+    worst16 = max(rels16, key=rels16.get)
+    print(f"training parity | bf16: each flash call within {tol} of "
+          f"flash_attention_plain on its q/k/v, max |err| {max(errs):.4g}; "
+          f"over the last quarter of rows rms(err)/rms at most "
+          f"{max(r for _, r, _ in late):.4g}, max |err|/rms at most "
+          f"{max(m for _, _, m in late):.4g} (limits {LATE_RMS_REL}, "
+          f"{LATE_MAX_REL}; rms {min(r for r, _, _ in late):.4g}-"
+          f"{max(r for r, _, _ in late):.4g}); loss "
+          f"{float(res16[True][0]):.6f} kernel / "
+          f"{float(res16[False][0]):.6f} plain (rel {loss16:.3g}, "
+          f"tolerance {tol}); gradient rel-L2 (reported) worst "
+          f"{rels16[worst16]:.3g} ({worst16}), median "
+          f"{statistics.median(rels16.values()):.3g}", flush=True)
+    _require(loss16 <= tol, "training parity bf16: loss")
+    del res16, k16
+
+    model = model.float()
+    res = {kernel: loss_and_grads(model, kernel, False)
+           for kernel in (True, False)}
+    _, _, nk, bk = res[True]
+    _require(nk["flash_attention"] == n_attn
+             and bk == {"wgmma": 0, "cuda_cores": n_attn},
+             f"training parity f32: {nk['flash_attention']} launches, "
+             f"bodies {bk}")
+    loss_err, rels = compare(res, "f32")
+    worst = max(rels, key=rels.get)
+    print(f"training parity | f32 (the CUDA-core body): loss "
+          f"{float(res[True][0]):.6f} kernel / {float(res[False][0]):.6f} "
+          f"plain (rel {loss_err:.3g}, tolerance {TRAIN_LOSS_RTOL}); "
+          f"gradient rel-L2 worst {rels[worst]:.3g} ({worst}), median "
+          f"{statistics.median(rels.values()):.3g} (tolerance "
+          f"{TRAIN_GRAD_REL}); {n_attn} flash launches", flush=True)
+    _require(loss_err <= TRAIN_LOSS_RTOL, "training parity: loss")
+    _require(rels[worst] <= TRAIN_GRAD_REL, "training parity: gradients")
+    return {"loss_rel": loss_err, "grad_rel": rels[worst],
+            "bf16_flash_max_err": max(errs), "bf16_loss_rel": loss16,
+            "bf16_grad_rel_reported": rels16[worst16]}
+
+
+def train_sync(torch, dev) -> dict:
+    """(T3) The explicit-DP gradient sync at full size, 8 data ranks
+    simulated on the card through ``KernelTransport.run_global``: each
+    rank's gradient is the sum-loss gradient of one row of a launcher
+    batch (bf16 parameters), flattened to f32 and cut into 4 buckets as
+    ``train.sync.dp_allreduce`` hands them to ``mpix_allreduce``."""
+    from repro_torch import configs, cuda
+    from repro_torch.core.algorithms import REGISTRY
+    from repro_torch.core.kernel_lowering import (get_kernel_exec,
+                                                  schedule_exec_plain)
+    from repro_torch.core.topology import Topology
+    from repro_torch.core.transport import KernelTransport
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.models import model as M
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    model = M.init_params(cfg, generator=g, device=dev)
+    params = [p for p in model.parameters()]
+    P = sum(p.numel() for p in params)
+    batch = DataPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=2048,
+        global_batch=SYNC_RANKS)).batch(0, device=dev)
+    n = SYNC_RANKS
+    per = -(-P // SYNC_BUCKETS)
+    per = -(-per // n) * n                     # each bucket pads to n
+    flat = torch.zeros((n, per * SYNC_BUCKETS), device=dev)
+    counts = []
+    for r in range(n):
+        s, c = M.lm_loss(model, cfg, batch["tokens"][r:r + 1],
+                         batch["labels"][r:r + 1], use_kernel=True,
+                         remat=True, reduction="sum_count")
+        grads = torch.autograd.grad(s, params)
+        flat[r, :P] = torch.cat([x.reshape(-1).float() for x in grads])
+        counts.append(int(c))
+        del grads, s
+    # the one-device gradient of the 8-row batch: in bf16 (reported) and
+    # of the same weights widened to f32 (held: bf16's own accumulation,
+    # the tied embedding's above all, strays from it by about as much as
+    # the synced mean does)
+    refs = {}
+    for tag, m in (("bf16", model), ("f32", M.from_state(cfg, {
+            k: v.detach().float() for k, v in model.state_dict().items()}))):
+        ps = [p for p in m.parameters()]
+        loss = M.lm_loss(m, cfg, batch["tokens"], batch["labels"],
+                         use_kernel=True, remat=True)
+        refs[tag] = torch.cat([x.reshape(-1).float()
+                               for x in torch.autograd.grad(loss, ps)])
+        del loss, ps, m
+    denom = float(sum(counts))
+    topo = Topology(n, n // 2)
+    tr = KernelTransport(n, topo=topo)
+    rows = []
+    for algo in SYNC_ALGOS:
+        sched = REGISTRY["allreduce"][algo](topo)
+        synced = torch.empty(per * SYNC_BUCKETS, device=dev)
+        for b in range(SYNC_BUCKETS):
+            gbuf = flat[:, b * per:(b + 1) * per].reshape(
+                n, n, per // n).contiguous()
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            got = tr.run_global(sched, gbuf)
+            torch.cuda.synchronize()
+            launches, bodies = dict(cuda.LAUNCHES), dict(
+                cuda.TRANSPORT_BODIES)
+            _require(launches["schedule_exec"] == 1,
+                     f"sync {algo} bucket {b}: {launches['schedule_exec']} "
+                     f"launches")
+            ex = get_kernel_exec(sched, topo=topo).ex
+            plain = schedule_exec_plain(ex, gbuf)
+            _require(torch.equal(got.view(torch.int32),
+                                 plain.view(torch.int32)),
+                     f"sync {algo} bucket {b}: kernel != plain version")
+            _require(all(torch.equal(got[r], got[0]) for r in range(n)),
+                     f"sync {algo} bucket {b}: ranks differ")
+            synced[b * per:(b + 1) * per] = got[0].reshape(-1)
+            body = [k for k, v in bodies.items() if v]
+            ms = time_ms(torch, tr.run_global, sched, gbuf, reps=3,
+                         batches=3)
+            nbytes = 2 * gbuf.numel() * 4
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append({"algo": algo, "bucket": b, "body": body[0],
+                         "ms": ms, "bound_ms": bound, "bytes": nbytes})
+            print(f"training sync | {algo} on {topo.fingerprint()}, bucket "
+                  f"{b}: [{n}, {n}, {per // n}] f32 "
+                  f"({gbuf.numel() * 4 / 1e9:.3f} GB), one launch on the "
+                  f"{body[0]} body, bitwise the plain version, every rank "
+                  f"alike; {ms:.3f} ms, bound {bound:.3f} ms (bytes)",
+                  flush=True)
+            del got, plain, gbuf
+        mean = synced[:P] / denom
+        rel = _rel_l2(torch, mean, refs["f32"])
+        rel16 = _rel_l2(torch, mean, refs["bf16"])
+        print(f"training sync | {algo}: synced mean gradient against the "
+              f"one-device {n}-row gradient of the f32 weights: rel-L2 "
+              f"{rel:.4g} (tolerance {SYNC_REL}); against the bf16 one "
+              f"{rel16:.4g}; the bf16 one against the f32 one "
+              f"{_rel_l2(torch, refs['bf16'], refs['f32']):.4g}",
+              flush=True)
+        _require(rel <= SYNC_REL, f"sync {algo}: rel-L2 {rel}")
+    return {"rows": rows, "launches": len(rows)}
+
+
+def train_moe(torch, dev) -> dict:
+    """(T4) One dropless train step of moonshot-v1-16b-a3b at full width,
+    layers 0-2 (the dense layer and two MoE layers), held finite; then
+    MOE_TIMED more, timed warm."""
+    from repro_torch import configs
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.train.step import (TrainOptions, init_train_state,
+                                        make_train_step)
+
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                              n_periods=MOE_PERIODS)
+    opts = TrainOptions(moe_mode="dropless", use_kernel=True, remat=True,
+                        peak_lr=3e-3, warmup_steps=1, total_steps=10)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(g, cfg, opts, device=dev)
+    state["step"] += 1                            # past the warmup
+    B, S = MOE_BATCH
+    batch = DataPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch(
+        0, device=dev)
+    step = make_train_step(cfg, None, opts)
+    new, m = step(state, batch)                   # the step held below
+    torch.cuda.synchronize()
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    n_params = sum(v.numel() for v in new["params"].values())
+    del state
+    # the router's load-balance loss at each MoE layer, on this batch
+    # through the stepped weights
+    aux_by_layer = []
+
+    def dispatch(p, c, h):
+        _, idx, probs = moe.route(p, c, h.reshape(-1, h.shape[-1]))
+        aux_by_layer.append(float(moe.aux_loss(c, probs, idx)))
+        return moe.forward_dropless(p, c, h, cfg.mlp_act)
+
+    with torch.no_grad():
+        M.forward(M.from_state(cfg, new["params"]), cfg, batch["tokens"],
+                  use_kernel=True, moe_dispatch=dispatch)
+    aux = max(aux_by_layer)
+    # then timed warm: MOE_TIMED more steps from the stepped state, the
+    # median of their CUDA event pairs
+    times, run = [], new
+    del new
+    for _ in range(MOE_TIMED):
+        e0, e1 = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        e0.record()
+        run, _ = step(run, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    del run
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"training moe | {MOE_ARCH} layers 0-{MOE_PERIODS} "
+          f"({n_params:,} parameters), dropless, B {B} x S {S}: loss "
+          f"{loss:.4f}, grad norm {gnorm:.4g}, aux_loss by MoE layer "
+          f"{[round(v, 4) for v in aux_by_layer]}; "
+          f"{ms:.3f} ms a step (CUDA events, median of {MOE_TIMED} steps "
+          f"after the first: {[round(t, 3) for t in times]}), peak memory "
+          f"{peak:.3f} GB", flush=True)
+    _require(math.isfinite(loss) and math.isfinite(gnorm)
+             and math.isfinite(aux), "training moe: non-finite")
+    return {"ms": ms, "ms_each": times, "peak_gb": peak, "loss": loss,
+            "aux_loss": aux, "params": n_params}
 
 
 if __name__ == "__main__":

@@ -166,3 +166,23 @@ def params_from_jax(tree: dict, *, held: tuple[int, int] | None = None
         state["encoder.final_norm"] = tensor_from_numpy(
             np.asarray(tree["encoder"]["final_norm"]))
     return state
+
+
+def train_state_from_jax(state: dict, *,
+                         held: tuple[int, int] | None = None) -> dict:
+    """The port's train state (``train.step.init_train_state``'s layout)
+    for the reference's ``init_train_state`` tree with numpy leaves:
+    ``params``, the AdamW moments ``opt.mu`` / ``opt.nu`` and, with
+    error feedback, ``ef_residual``, each through ``params_from_jax``
+    (so each is a dict keyed by the port's parameter names); the
+    counters ``opt.count`` and ``step`` as int32 scalars."""
+    out = {"params": params_from_jax(state["params"], held=held),
+           "opt": {"mu": params_from_jax(state["opt"]["mu"], held=held),
+                   "nu": params_from_jax(state["opt"]["nu"], held=held),
+                   "count": tensor_from_numpy(
+                       np.asarray(state["opt"]["count"], np.int32))},
+           "step": tensor_from_numpy(np.asarray(state["step"], np.int32))}
+    if state.get("ef_residual") is not None:
+        out["ef_residual"] = params_from_jax(state["ef_residual"],
+                                             held=held)
+    return out

@@ -185,6 +185,46 @@ def heal_heartbeat(daemon, engine, interval_s: float, group=None):
     return on_step
 
 
+def ep_prefill(args, cfg, params, prompts, device: torch.device):
+    """``--ep-transport``: one batched prefill of the prompts with the
+    expert-parallel MoE dispatch (experts sharded over every rank of the
+    group on the ``model`` axis, each rank routing its slice of the
+    tokens), held against the dense-dispatch prefill; the largest
+    |logit| difference is printed.  Returns the EP prefill's logits."""
+    from repro_torch.launch.mesh import Mesh, ensure_process_group
+    from repro_torch.serve.step import make_prefill_step
+    from repro_torch.train.moe_dispatch import EPOptions
+
+    if cfg.moe is None:
+        raise SystemExit(f"--ep-transport: {cfg.name} has no MoE layers "
+                         f"to dispatch")
+    import torch.distributed as dist
+    created = ensure_process_group(device)
+    try:
+        mesh = Mesh((1, dist.get_world_size()), ("data", "model"),
+                    device_type=device.type)
+        opts = ServeOptions(
+            ep_options=EPOptions(alltoall=args.ep_alltoall,
+                                 transport=args.ep_transport,
+                                 policy=args.select_policy),
+            resilience=(None if args.resilience == "off"
+                        else args.resilience))
+        t0 = time.perf_counter()
+        got = make_prefill_step(cfg, opts, mesh)(params, prompts)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        want = make_prefill_step(cfg, ServeOptions())(params, prompts)
+        err = float((got.float() - want.float()).abs().max())
+        print(f"EP prefill ({args.ep_alltoall} on {args.ep_transport}, "
+              f"{mesh.shape['model']} rank(s)): {tuple(got.shape)} in "
+              f"{dt:.2f}s, max |logit - dense dispatch| {err:.4g}")
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return got
+
+
 def _run_continuous(args, cfg, device: torch.device) -> dict:
     """Continuous batching: drive the engine through a seeded Poisson
     multi-tenant trace; KV blocks move prefill pool -> decode pool via
@@ -361,6 +401,19 @@ def main(argv=None):
                     help="continuous mode: substrate executing the KV "
                          "block-transfer schedules (dist runs under "
                          "torchrun with one process per engine rank)")
+    ap.add_argument("--ep-alltoall", default="xla",
+                    help="mpix algorithm of the expert-parallel prefill "
+                         "dispatch (used with --ep-transport)")
+    ap.add_argument("--ep-transport", default=None,
+                    choices=["dist", "kernel", "auto"],
+                    help="run one batched prefill of the prompts with the "
+                         "expert-parallel MoE dispatch on this substrate, "
+                         "experts sharded over every rank of the group "
+                         "(torchrun's, or this process alone), beside the "
+                         "dense-dispatch prefill: one exchange per round "
+                         "(dist), the whole schedule as one launch of the "
+                         "transport kernel (kernel), or the tuner's "
+                         "per-size choice (auto)")
     ap.add_argument("--resilience", default="off",
                     choices=["off", "canary", "full"],
                     help="continuous mode: arm the recovery ladder on the "
@@ -391,13 +444,15 @@ def main(argv=None):
             ap.error(f"--requests must be >= 1 (got {args.requests})")
         if args.kv_blocks < 1:
             ap.error(f"--kv-blocks must be >= 1 (got {args.kv_blocks})")
-    if args.resilience != "off" and not args.continuous:
-        # resilience threads through the KV transfer collectives only;
-        # without them it would silently protect nothing
+    if args.resilience != "off" and not args.continuous \
+            and args.ep_transport is None:
+        # resilience threads through the KV transfer collectives and the
+        # EP dispatch only; without them it would silently protect nothing
         raise SystemExit(
             f"--resilience {args.resilience} has nothing to protect: "
             f"the single-shot decode path runs no mpix collectives. "
-            f"Arm a protected path with --continuous (KV-cache "
+            f"Arm a protected path with --ep-transport dist|kernel|auto "
+            f"(EP prefill dispatch) or --continuous (KV-cache "
             f"transfers), or drop --resilience.")
     tuning = [f for f, on in (
         ("--autotune", args.autotune), ("--autotune-full", args.autotune_full),
@@ -453,6 +508,8 @@ def main(argv=None):
                              device=device).to(torch.bfloat16)
         with torch.no_grad():
             cross = M.encode(params, cfg, frames)
+    if args.ep_transport is not None:
+        ep_prefill(args, cfg, params, prompts, device)
 
     t0 = time.perf_counter()
     out, _ = generate(params, cfg, prompts, args.gen, cross_src=cross)

@@ -100,15 +100,20 @@ def _norm(cfg: ModelConfig, x, w):
     return rmsnorm(x, w, cfg.norm_eps, gemma_style=cfg.gemma_norm)
 
 
-def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache=None):
+def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache=None,
+        moe_dispatch=None):
     """The feed-forward sublayer; with ``cache`` (decode) the channel
     mix reads and updates its token-shift carry ``cache["cmix"]`` and the
-    MoE takes the capacity dispatch."""
+    MoE takes the capacity dispatch.  A full-sequence MoE takes
+    ``moe_dispatch(p.moe, cfg.moe, h)`` when given (the capacity or
+    expert-parallel dispatch of training), else the dense dispatch."""
     if spec.ff == "none":
         return x
     h = _norm(cfg, x, p.norm_ff)
     if spec.ff == "mlp":
         h = mlp.forward(p.mlp, h, cfg.mlp_act)
+    elif spec.ff == "moe" and cache is None and moe_dispatch is not None:
+        h = moe_dispatch(p.moe, cfg.moe, h)
     elif spec.ff == "moe" and cache is None:
         h = moe.forward(p.moe, cfg.moe, h, cfg.mlp_act)
     elif spec.ff == "moe":
@@ -141,8 +146,9 @@ def _cross(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cross_src):
 
 
 def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
-            cross_src=None, use_kernel=False):
-    """Full-sequence block; x [B, S, d]."""
+            cross_src=None, use_kernel=False, moe_dispatch=None):
+    """Full-sequence block; x [B, S, d].  ``moe_dispatch`` replaces an
+    MoE layer's dense dispatch (see ``_ff``)."""
     h = _norm(cfg, x, p.norm_mixer)
     if spec.mixer == "attn":
         h = attention.forward(p.attn, cfg.attn, h, positions=positions,
@@ -160,7 +166,8 @@ def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
         h = torch.zeros_like(h)
     if cfg.post_block_norm:
         h = _norm(cfg, h, p.norm_mixer_post)
-    return _ff(p, spec, cfg, _cross(p, spec, cfg, x + h, cross_src))
+    return _ff(p, spec, cfg, _cross(p, spec, cfg, x + h, cross_src),
+               moe_dispatch=moe_dispatch)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.common import dense_init_, rmsnorm, softcap
@@ -148,10 +149,17 @@ def _logits(p: Model, cfg: ModelConfig, x):
 
 
 def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
-            vision_embeds=None, encoder_frames=None, use_kernel=False):
+            vision_embeds=None, encoder_frames=None, use_kernel=False,
+            moe_dispatch=None, remat=False):
     """tokens [B, S] -> logits [B, S, V].  An encoder-decoder takes
     ``encoder_frames`` [B, n_frames, d_enc]; a VLM may take
-    ``vision_embeds`` [B, n_vis, d]."""
+    ``vision_embeds`` [B, n_vis, d].  ``moe_dispatch(p_moe, cfg_moe, x)``
+    replaces the MoE layers' dense dispatch.  ``remat`` recomputes the
+    periodic layers' activations in the backward pass, one period at a
+    time, as the reference checkpoints its scan body with nothing
+    saveable: each period's forward runs again (kernels included) when
+    its gradient is needed; the prefix and suffix layers are not
+    checkpointed."""
     B, S = tokens.shape
     x = embed_tokens(p, cfg, tokens, vision_embeds)
     if positions is None:
@@ -162,10 +170,45 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
             raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
                              f"encoder_frames")
         cross_src = encode(p, cfg, encoder_frames)
-    for layer, spec in zip(p.layers, cfg.blocks()):
-        x = blocks.forward(layer, spec, cfg, x, positions=positions,
-                           cross_src=cross_src, use_kernel=use_kernel)
+    kw = dict(positions=positions, cross_src=cross_src,
+              use_kernel=use_kernel, moe_dispatch=moe_dispatch)
+    layers = list(zip(p.layers, cfg.blocks()))
+
+    def run(x, span):
+        for layer, spec in span:
+            x = blocks.forward(layer, spec, cfg, x, **kw)
+        return x
+
+    n_pre, n_per = len(cfg.prefix), len(cfg.period)
+    mid = n_pre + n_per * cfg.n_periods
+    if remat and torch.is_grad_enabled() and cfg.n_periods:
+        x = run(x, layers[:n_pre])
+        for i in range(n_pre, mid, n_per):
+            x = checkpoint(run, x, layers[i:i + n_per], use_reentrant=False)
+        x = run(x, layers[mid:])
+    else:
+        x = run(x, layers)
     return _logits(p, cfg, x)
+
+
+def lm_loss(p: Model, cfg: ModelConfig, tokens, labels, *,
+            reduction="mean", **kw):
+    """Next-token cross-entropy; labels < 0 are masked.  The logits go
+    to f32 before the log-sum-exp.
+
+    reduction="mean": the scalar mean over live tokens.
+    reduction="sum_count": (sum, live count), what data-parallel shards
+    exchange so that the global mean is exact under uneven masking.
+    ``kw`` goes to ``forward``."""
+    logits = forward(p, cfg, tokens, **kw).float()
+    mask = labels >= 0
+    lbl = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    if reduction == "sum_count":
+        return nll.sum(), mask.sum()
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
 # ---------------------------------------------------------------------------

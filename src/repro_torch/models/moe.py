@@ -25,8 +25,8 @@ result and adds nothing for the others (their ranks would; on one card
 the layer runs without the exchange).  The capacity is that of the
 whole layer.  The shared experts are added only by the share that holds
 expert 0 (``lo == 0``), so that summing the ranks' parts counts them
-once.  The load-balance ``aux_loss`` serves training, which is
-not ported.
+once.  ``aux_loss`` is the reference's Switch-style load-balance
+loss over the router's probabilities and choices.
 """
 from __future__ import annotations
 
@@ -160,3 +160,12 @@ def forward_dropless(p: MoE, cfg: MoEConfig, x, act: str = "silu",
     flat_y = torch.cat([ye.reshape(n, d), xt.new_zeros((1, d))])
     out = torch.einsum("tkd,tk->td", flat_y[dest].reshape(T, K, d), w)
     return _add_shared(p, cfg, out, xt, act, lo).reshape(B, S, d)
+
+
+def aux_loss(cfg: MoEConfig, probs, idx):
+    """Switch-style load-balance loss over the router probs [T, E] and
+    choices idx [T, k]: E * sum_e(routed fraction_e * mean prob_e)."""
+    E = cfg.n_experts
+    load = torch.nn.functional.one_hot(idx, E).float().sum((0, 1)) \
+        / idx.shape[0]
+    return E * torch.sum(load * probs.mean(0))

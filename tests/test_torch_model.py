@@ -271,16 +271,21 @@ def test_shape_cells_equal_reference():
 
 
 def test_ep_options_raise_and_resilience_is_accepted():
-    """The expert-parallel dispatch waits for the training slice, so
-    ``ep_options`` raises; ``resilience`` is accepted (it reaches only
-    that dispatch, as in the reference) and a bad option still fails;
-    a state that does not fit the model is refused."""
+    """``ep_options`` is accepted: a model without MoE layers has nothing
+    to dispatch, an MoE prefill without a mesh raises (the dispatch
+    runs over a mesh of ranks: tests/test_torch_train_dist.py), and
+    decode keeps the capacity dispatch, as in the reference;
+    ``resilience`` is accepted and a bad option still fails; a state
+    that does not fit the model is refused."""
+    from repro_torch.train.moe_dispatch import EPOptions
     cfg = configs.get_smoke("qwen3-14b")
-    opts = ServeOptions(ep_options=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_prefill_step(cfg, opts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decode_step(cfg, opts)
+    opts = ServeOptions(ep_options=EPOptions())
+    make_prefill_step(cfg, opts)
+    make_decode_step(cfg, opts)
+    moe_cfg = configs.get_smoke("moonshot-v1-16b-a3b")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_prefill_step(moe_cfg, opts)
+    make_decode_step(moe_cfg, opts)
     make_prefill_step(cfg, ServeOptions(resilience="canary"))
     make_decode_step(cfg, ServeOptions(resilience="canary"))
     with pytest.raises(ValueError, match="resilience preset"):
