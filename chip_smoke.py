@@ -243,6 +243,25 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              gradient norm and each MoE layer's ``aux_loss`` finite; then
              3 more steps, their median ms, and the peak memory printed.
 
+9. sharding — phase (S), after (T): (S1) ``launch.dryrun`` of phase
+             (T)'s config (smollm-360m, B 8 x S 2048, remat) on a (1, 1)
+             mesh: its parameter and optimizer bytes equal the live
+             train state's on the card exactly, its FLOPs within 1% of
+             ``FlopCounterMode``'s count of one real step on the card
+             with the plain attention, its predicted peak printed beside
+             that step's and phase (T)'s; (S2) the reference dry-run's
+             cells (smollm-360m train_4k on 16x16 and 2x16x16, rwkv6-3b
+             long_500k) and moonshot-v1-16b-a3b train_4k under
+             ``mpix_ep``, each in its own process on the host while the
+             card runs (S1) and (S3): seconds and totals printed; (S3) a
+             one-rank NCCL mesh: the sharded fsdp step (smollm-360m, 4
+             layers, f32, the flash kernel) within the CPU test's
+             tolerance of the replicated step over 2 steps, its flash
+             launches counted; ``mesh_decode_step`` (gemma2-2b's first 4
+             layers, f32) within 2e-5 of the one-device decode over 6
+             steps, normal layout at batch 4 and ``long_context`` at
+             batch 1.  One rank is no evidence of data parallelism.
+
 The last two lines of standard output are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, the script exits non-zero and prints no
@@ -366,6 +385,9 @@ def main() -> int:
         "host_issue_ms_b1_s128", "peak_gb")}
     transport["training_launches"] = trained["sync"]["launches"]
     transport["training_sync"] = trained["sync"]["rows"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharding(torch, dev, trained)
     print(f"phases of the remaining archs (s): {arch_s}; whole run "
           f"{time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4237,6 +4259,278 @@ def train_moe(torch, dev) -> dict:
              and math.isfinite(aux), "training moe: non-finite")
     return {"ms": ms, "ms_each": times, "peak_gb": peak, "loss": loss,
             "aux_loss": aux, "params": n_params}
+
+
+# ---------------------------------------------------------------------------
+# sharding: the dry-run, the reference's dry-run cells, a one-rank mesh
+# ---------------------------------------------------------------------------
+
+# (S2): the reference dry-run's cells (tests/device_scripts/
+# check_dryrun_cell.py) and moonshot under the expert-parallel dispatch,
+# each in its own process on the host (meta tensors: no card)
+DRYRUN_CELLS = (("smollm-360m", "train_4k", "single"),
+                ("smollm-360m", "train_4k", "multi"),
+                ("rwkv6-3b", "long_500k", "single"),
+                ("moonshot-v1-16b-a3b", "train_4k", "single"))
+SHARD_LAYERS = 4                 # (S3): smollm-360m and gemma2-2b cut
+SHARD_DECODE_STEPS, SHARD_DECODE_LEN = 6, 64
+# the CPU tests' tolerances (tests/test_torch_sharded_step.py,
+# tests/test_torch_mesh_decode.py)
+SHARD_LOSS_TOL, SHARD_PARAM_ATOL, DECODE_TOL = 1e-2, 1e-2, 2e-5
+
+
+def _start_dryrun_cells(tmp: str) -> list:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        out = os.path.join(tmp, f"{arch}_{shape}_{mesh}.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--json", out]
+        procs.append(((arch, shape, mesh), out, time.perf_counter(),
+                      subprocess.Popen(cmd, env=env, cwd=str(ROOT),
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT,
+                                       text=True)))
+    return procs
+
+
+def sharding(torch, dev, trained) -> dict:
+    """Phase (S): (S1) the dry-run of phase (T)'s config against the
+    card; (S2) the reference's dry-run cells on the host, in their own
+    processes while the card runs (S1) and (S3); (S3) the sharded fsdp
+    step and the mesh decode on a one-rank NCCL mesh against their
+    unsharded counterparts."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        procs = _start_dryrun_cells(tmp)
+        try:
+            out = {"dryrun": shard_dryrun(torch, dev, trained)}
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["mesh"] = shard_mesh(torch, dev)
+        finally:
+            cells = []
+            for cell, path, _, proc in procs:
+                log, _ = proc.communicate()
+                cells.append((cell, path, proc.returncode, log))
+            out["dryrun_wall_s"] = time.perf_counter() - procs[0][2]
+        out["cells"] = []
+        for (arch, shape, mesh), path, rc, log in cells:
+            _require(rc == 0, f"dry-run {arch} {shape} {mesh}: exit {rc}\n"
+                              f"{log[-2000:]}")
+            with open(path) as f:
+                r = json.load(f)["results"][0]
+            c, m = r["collectives"], r["mem"]
+            print(f"sharding dry-run | {arch} {shape} {r['mesh']} "
+                  f"({r['kind']}): meta run {r['compile_s']} s, "
+                  f"flops/device {r['flops_per_device']:.4e}, "
+                  f"hbm bytes/device {r['hbm_bytes_per_device']:.4e}, "
+                  f"params {m['param_bytes']:,} B, optimizer "
+                  f"{m['opt_bytes']:,} B, arguments {m['argument_bytes']:,} "
+                  f"B, temp {m['temp_bytes']:,} B, peak {m['peak_bytes']:,} "
+                  f"B, collectives {c['count']} ({c['total']:.4e} wire "
+                  f"bytes: " + ", ".join(
+                      f"{k} {v:.4e}" for k, v in c.items()
+                      if k not in ("count", "total") and v) + ")",
+                  flush=True)
+            _require(r["flops_per_device"] > 0 and m["peak_bytes"] > 0,
+                     f"dry-run {arch} {shape}: empty result")
+            out["cells"].append(r)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"sharding: phase {out['seconds']:.2f} s (the {len(procs)} "
+          f"dry-run processes, side by side: {out['dryrun_wall_s']:.2f} s)",
+          flush=True)
+    return out
+
+
+def shard_dryrun(torch, dev, trained) -> dict:
+    """(S1) ``launch.dryrun`` on phase (T)'s config (smollm-360m, B 8 x S
+    2048, remat, fsdp) on a (1, 1) mesh, against the card: its parameter
+    and optimizer bytes equal the live train state's exactly; its FLOPs
+    beside ``FlopCounterMode``'s count of one real step on the card with
+    the plain attention (``use_kernel=False``, every product an aten op
+    the counter sees), within 1%; its predicted peak beside that step's
+    measured peak and phase (T)'s (the flash kernel's) peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.train.step import (TrainOptions, init_train_state,
+                                        make_train_step)
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    B, S = 8, 2048
+    ins = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+           for k in ("tokens", "labels")}
+    mesh = dryrun.layout_for(False, (1, 1))
+    pred = dryrun.analyse_cell(cfg, "train", ins, mesh,
+                               train_overrides={"remat": True})
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    opts = TrainOptions(remat=True, use_kernel=False)
+    state = init_train_state(g, cfg, opts, device=dev)
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    live = {"params": nbytes(state["params"].values()),
+            "opt": nbytes([*state["opt"]["mu"].values(),
+                           *state["opt"]["nu"].values(),
+                           state["opt"]["count"], state["step"]])}
+    m = pred["mem"]
+    print(f"sharding S1 | dry-run of {TRAIN_ARCH} B {B} x S {S}, remat, "
+          f"mesh 1x1: params {m['param_bytes']:,} B (live state on the "
+          f"card {live['params']:,}), optimizer {m['opt_bytes']:,} B (live "
+          f"{live['opt']:,}); meta run {pred['compile_s']} s", flush=True)
+    _require(m["param_bytes"] == live["params"]
+             and m["opt_bytes"] == live["opt"],
+             f"dry-run bytes {m['param_bytes']}, {m['opt_bytes']} != the "
+             f"live state's {live}")
+    batch = DataPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch(
+        0, device=dev)
+    step = make_train_step(cfg, None, opts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    real_peak = torch.cuda.max_memory_allocated() - base
+    _require(math.isfinite(float(metrics["loss"])), "S1: loss not finite")
+    del new, metrics, state
+    rel = abs(pred["flops_per_device"] - real_flops) / real_flops
+    print(f"sharding S1 | FLOPs: dry-run {pred['flops_per_device']:.6e}, "
+          f"FlopCounterMode of one real step on the card (plain attention) "
+          f"{real_flops:.6e} (rel {rel:.3g}); peak: dry-run predicted "
+          f"{m['peak_bytes'] / 1e9:.3f} GB (arguments "
+          f"{m['argument_bytes'] / 1e9:.3f} + temp "
+          f"{m['temp_bytes'] / 1e9:.3f}), the real plain step's "
+          f"{(real_peak + live['params'] + live['opt']) / 1e9:.3f} GB "
+          f"(its allocations {real_peak / 1e9:.3f} GB over the state), "
+          f"phase (T)'s launcher (flash kernel) "
+          f"{trained['launcher']['peak_gb']:.3f} GB", flush=True)
+    _require(rel < 0.01, f"S1: dry-run FLOPs off the card's count by "
+                         f"{rel:.3g}")
+    return {"pred": pred, "real_flops": real_flops,
+            "real_peak_bytes": real_peak, "live": live}
+
+
+def shard_mesh(torch, dev) -> dict:
+    """(S3) A one-rank NCCL mesh (1, 1): the sharded fsdp step
+    (smollm-360m cut to 4 layers, f32, remat, the flash kernel) against
+    the replicated one, 2 steps; ``mesh_decode_step`` (gemma2-2b's first
+    4 layers, f32) against the one-device decode, 6 steps, in the normal
+    layout at batch 4 and with ``long_context`` at batch 1.  One rank is
+    no evidence of data parallelism: its blocks are whole and no
+    collective runs."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, cuda
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.launch.mesh import Mesh, ensure_process_group
+    from repro_torch.models import model as M
+    from repro_torch.serve.step import (ServeOptions, init_serve_cache,
+                                        make_decode_step, mesh_decode_step)
+    from repro_torch.train import shard
+    from repro_torch.train.sharding import batch_specs
+    from repro_torch.train.step import (TrainOptions, init_train_state,
+                                        make_train_step, sharded_train_step)
+
+    created = ensure_process_group(dev)
+    try:
+        mesh = Mesh((1, 1), ("data", "model"), device_type=dev.type)
+        cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                                  n_periods=SHARD_LAYERS)
+        opts = TrainOptions(remat=True, use_kernel=True, peak_lr=1e-3,
+                            warmup_steps=1, total_steps=100)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        full = init_train_state(g, cfg, opts, device=dev)
+        full["params"] = {k: v.float() for k, v in full["params"].items()}
+        batches = [DataPipeline(PipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=2048, global_batch=8)).batch(
+            i, device=dev) for i in range(2)]
+        ref, st = [], full
+        plain = make_train_step(cfg, None, opts)
+        for b in batches:
+            st, mt = plain(st, b)
+            ref.append(float(mt["loss"]))
+        step, sspec = sharded_train_step(cfg, mesh, opts, full,
+                                         batch_specs(mesh))
+        sh = shard.cut_tree(full, sspec, mesh)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        losses = []
+        for b in batches:
+            sh, mt = step(sh, b)
+            losses.append(float(mt["loss"]))
+        torch.cuda.synchronize()
+        flash = dict(cuda.LAUNCHES)["flash_attention"]
+        back = shard.gather_tree(sh, sspec, mesh)
+        perr = max(float((back["params"][k] - v).abs().max())
+                   for k, v in st["params"].items())
+        lerr = max(abs(a - b) for a, b in zip(losses, ref))
+        n_attn = sum(1 for s in cfg.blocks() if s.mixer == "attn")
+        print(f"sharding S3 | sharded fsdp step, {TRAIN_ARCH} "
+              f"{SHARD_LAYERS} layers f32, remat, one-rank NCCL mesh 1x1: "
+              f"losses {[round(v, 5) for v in losses]} against the "
+              f"replicated step's {[round(v, 5) for v in ref]} (max |diff| "
+              f"{lerr:.3g}, tolerance {SHARD_LOSS_TOL}); parameters after "
+              f"2 steps max |diff| {perr:.3g} (tolerance "
+              f"{SHARD_PARAM_ATOL}); flash launches {flash} in 2 steps "
+              f"({n_attn} layers x forward and recompute = {2 * n_attn} a "
+              f"step)", flush=True)
+        _require(lerr < SHARD_LOSS_TOL and perr < SHARD_PARAM_ATOL,
+                 "S3: the sharded step is off the replicated one")
+        _require(flash == 2 * 2 * n_attn, f"S3: {flash} flash launches")
+        del full, st, sh, back, batches
+
+        dcfg = dataclasses.replace(configs.get_config(SERVE_ARCH),
+                                   n_periods=SHARD_LAYERS // 2)
+        g.manual_seed(0)
+        params = {k: v.float() for k, v in M.init_params(
+            dcfg, generator=g, device=dev).state_dict().items()}
+        model = M.from_state(dcfg, params)
+        dec = make_decode_step(dcfg, ServeOptions())
+        errs = {}
+        for long, B in ((False, 4), (True, 1)):
+            g.manual_seed(1)
+            toks = torch.randint(0, dcfg.vocab_size,
+                                 (B, SHARD_DECODE_STEPS), generator=g,
+                                 device=dev, dtype=torch.int32)
+            ref_cache = init_serve_cache(dcfg, B, SHARD_DECODE_LEN,
+                                         device=dev, dtype=torch.float32)
+            meta = init_serve_cache(dcfg, B, SHARD_DECODE_LEN,
+                                    device="meta", dtype=torch.float32)
+            mstep, (pspec, cspec) = mesh_decode_step(
+                dcfg, mesh, ServeOptions(long_context=long), params, meta)
+            blocks = shard.cut_tree(params, pspec, mesh)
+            cache = shard.zeros_tree(meta, cspec, mesh, device=dev)
+            err = 0.0
+            for i in range(SHARD_DECODE_STEPS):
+                t = toks[:, i:i + 1]
+                _, ref_cache, want = dec(model, ref_cache, t)
+                _, cache, got = mstep(blocks, cache, t)
+                err = max(err, float((got - want).abs().max()
+                                     / (want.abs().max() + 1e-30)))
+            errs["long_context" if long else "normal"] = err
+        print(f"sharding S3 | mesh_decode_step, {SERVE_ARCH} layers "
+              f"0-{SHARD_LAYERS - 1} f32, {SHARD_DECODE_STEPS} steps: max "
+              f"|diff| / max |logit| against the one-device decode {errs} "
+              f"(tolerance {DECODE_TOL}); one rank is no evidence of data "
+              f"parallelism (its blocks are whole, no collective runs): "
+              f"the four-card cell carries that", flush=True)
+        _require(max(errs.values()) < DECODE_TOL,
+                 "S3: the mesh decode is off the one-device decode")
+        return {"losses": losses, "ref_losses": ref, "param_err": perr,
+                "flash_launches": flash, "decode_err": errs}
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -98,73 +98,108 @@ def scale_from_numpy(a, *, device=None) -> torch.Tensor:
 
 _EXPERT_STACKS = ("w_gate", "w_up", "w_down")   # [E, ...] under "moe"
 
-
-def _flatten(tree: dict, prefix: str, out: dict, index=None,
-             held=None) -> None:
-    for name, leaf in tree.items():
-        key = f"{prefix}{name}"
-        if isinstance(leaf, dict):
-            _flatten(leaf, key + ".", out, index, held)
-        else:
-            a = np.asarray(leaf)
-            if index is not None:
-                a = a[index]
-            if (held is not None and name in _EXPERT_STACKS
-                    and prefix.endswith(".moe.")):
-                a = a[held[0]:held[1]]
-            out[key] = tensor_from_numpy(a)
-
-
 _TOP = ("embed", "final_norm", "lm_head", "prefix", "periods", "suffix",
         "encoder")
+
+
+def _walk(tree: dict, path: tuple, prefix: str, index, out: dict) -> None:
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _walk(leaf, path + (name,), f"{prefix}{name}.", index, out)
+        else:
+            out[f"{prefix}{name}"] = (path + (name,), index)
+
+
+def _n_periods(periods: dict) -> int:
+    first = next(iter(periods.values()))
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return int(first.shape[0])
+
+
+def _layer_names(tree: dict, out: dict) -> None:
+    """The per-layer part of the map: ``prefix[i]``, each period's
+    ``b{j}`` and ``suffix[i]`` onto ``layers.{n}``, in stack order."""
+    layer = 0
+    for i, block in enumerate(tree.get("prefix", [])):
+        _walk(block, ("prefix", i), f"layers.{layer}.", None, out)
+        layer += 1
+    periods = tree.get("periods", {})
+    names = sorted(periods, key=lambda b: int(b[1:]))
+    if names:
+        for p in range(_n_periods(periods)):
+            for name in names:
+                _walk(periods[name], ("periods", name), f"layers.{layer}.",
+                      p, out)
+                layer += 1
+    for i, block in enumerate(tree.get("suffix", [])):
+        _walk(block, ("suffix", i), f"layers.{layer}.", None, out)
+        layer += 1
+
+
+def param_names_from_jax(tree: dict) -> dict:
+    """The name map from the reference's ``init_params`` tree (any
+    leaves with a ``shape``) to the port's ``Model.state_dict()``:
+    ``{port name: (reference path, period index or None)}``, the path a
+    tuple of dict keys and list indices.
+
+    ``prefix[i]`` becomes ``layers.{i}``; the stacked ``periods/b{j}``
+    arrays are cut along their leading ``n_periods`` axis into layers
+    ``len(prefix) + p * len(period) + j`` (period index ``p``);
+    ``suffix`` follows; ``encoder/layers[i]`` becomes
+    ``encoder.layers.{i}``.  Inside a block the names carry over as they
+    are (``mla.*``, ``moe.router_bias``, ``moe.shared.*``, ``norm_cross``,
+    ``cross.*``, ...)."""
+    unknown = sorted(set(tree) - set(_TOP))
+    if unknown:
+        raise ValueError(f"params_from_jax: no port for {unknown}")
+    out: dict = {}
+    for name in ("embed", "final_norm", "lm_head"):
+        if name in tree:
+            out[name] = ((name,), None)
+    _layer_names(tree, out)
+    if "encoder" in tree:
+        for i, block in enumerate(tree["encoder"]["layers"]):
+            _walk(block, ("encoder", "layers", i), f"encoder.layers.{i}.",
+                  None, out)
+        out["encoder.final_norm"] = (("encoder", "final_norm"), None)
+    return out
+
+
+def cache_names_from_jax(tree: dict) -> dict:
+    """The same map for the reference's ``init_cache`` tree onto the
+    port's cache (``{"layers": [...]}``, dotted as
+    ``layers.{n}.attn.k``); the host ``len`` counters included."""
+    out: dict = {}
+    _layer_names(tree, out)
+    return out
+
+
+def at_path(tree, path: tuple):
+    """The leaf of ``tree`` at a map path."""
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def params_from_jax(tree: dict, *, held: tuple[int, int] | None = None
                     ) -> dict:
     """The port's model state (names as in ``Model.state_dict()``) for
-    the reference's ``init_params`` tree with numpy leaves.
-
-    ``prefix[i]`` becomes ``layers.{i}``; the stacked ``periods/b{j}``
-    arrays are cut along their leading ``n_periods`` axis into layers
-    ``len(prefix) + p * len(period) + j``; ``suffix`` follows;
-    ``encoder/layers[i]`` becomes ``encoder.layers.{i}``.  Inside a
-    block the names carry over as they are (``mla.*``, ``moe.router_bias``,
-    ``moe.shared.*``, ``norm_cross``, ``cross.*``, ...).  Values and
-    dtypes are kept (bfloat16 bit for bit).  With ``held = (lo, hi)``
-    every MoE layer keeps only experts [lo, hi) of its stacked
-    ``w_gate`` / ``w_up`` / ``w_down`` (the router, its bias and the
-    shared experts stay whole), the state of a model whose
-    ``MoEConfig.held`` is that range."""
-    unknown = sorted(set(tree) - set(_TOP))
-    if unknown:
-        raise ValueError(f"params_from_jax: no port for {unknown}")
+    the reference's ``init_params`` tree with numpy leaves, through
+    ``param_names_from_jax``.  Values and dtypes are kept (bfloat16 bit
+    for bit).  With ``held = (lo, hi)`` every MoE layer keeps only
+    experts [lo, hi) of its stacked ``w_gate`` / ``w_up`` / ``w_down``
+    (the router, its bias and the shared experts stay whole), the state
+    of a model whose ``MoEConfig.held`` is that range."""
     state: dict = {}
-    for name in ("embed", "final_norm", "lm_head"):
-        if name in tree:
-            state[name] = tensor_from_numpy(np.asarray(tree[name]))
-    layer = 0
-    for block in tree.get("prefix", []):
-        _flatten(block, f"layers.{layer}.", state, held=held)
-        layer += 1
-    periods = tree.get("periods", {})
-    names = sorted(periods, key=lambda b: int(b[1:]))
-    if names:
-        first = periods[names[0]]
-        while isinstance(first, dict):
-            first = next(iter(first.values()))
-        for p in range(np.asarray(first).shape[0]):
-            for name in names:
-                _flatten(periods[name], f"layers.{layer}.", state, index=p,
-                         held=held)
-                layer += 1
-    for block in tree.get("suffix", []):
-        _flatten(block, f"layers.{layer}.", state, held=held)
-        layer += 1
-    if "encoder" in tree:
-        for i, block in enumerate(tree["encoder"]["layers"]):
-            _flatten(block, f"encoder.layers.{i}.", state)
-        state["encoder.final_norm"] = tensor_from_numpy(
-            np.asarray(tree["encoder"]["final_norm"]))
+    for name, (path, index) in param_names_from_jax(tree).items():
+        a = np.asarray(at_path(tree, path))
+        if index is not None:
+            a = a[index]
+        if (held is not None and path[-1] in _EXPERT_STACKS
+                and len(path) > 1 and path[-2] == "moe"):
+            a = a[held[0]:held[1]]
+        state[name] = tensor_from_numpy(a)
     return state
 
 

@@ -13,6 +13,10 @@ the same order (the train step asks for its groups when it is built).
 Group ranks run row-major over the named axes, so a group rank is the
 rank of a collective schedule on ``topology(axes)``.
 
+A ``MeshLayout`` is the same shape without ranks (a stand-in for the
+production meshes): the sharding rules and the dry-run read it, and its
+groups record the collectives issued on them (``train.comm``).
+
 Importing this module touches no process group; the functions do.
 """
 from __future__ import annotations
@@ -28,26 +32,24 @@ from repro_torch.core.topology import (DCN_LINK, ICI_LINK, TopoLevel,
                                        Topology)
 
 
-class Mesh:
-    """``shape`` ranks over ``axis_names``, on ``device_type`` ("cuda":
-    one card a rank, NCCL; "cpu": gloo)."""
+class MeshLayout:
+    """The shape of a mesh without its process groups: ``shape`` ranks
+    over ``axis_names``, this rank at ``coords`` (the origin by default).
+    The sharding rules, the sharded steps' block arithmetic and the
+    dry-run read only this, so a layout stands in for the 256- and
+    512-rank production meshes; ``group(axes)`` gives a
+    ``train.comm.AxesGroup``, a group with no process behind it whose
+    collectives are recorded (``train.comm``)."""
 
-    def __init__(self, shape, axis_names, *, device_type: str = "cpu"):
-        from torch.distributed.device_mesh import init_device_mesh
+    def __init__(self, shape, axis_names, *, coords=None, log=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
-        n = math.prod(self.shape.values())
-        world = dist.get_world_size()
-        if world != n:
-            raise ValueError(f"a mesh of {dict(self.shape)} needs {n} "
-                             f"ranks, the process group has {world}")
-        self.device_type = device_type
-        self.device_mesh = init_device_mesh(
-            device_type, tuple(self.shape.values()),
-            mesh_dim_names=self.axis_names)
-        self.rank = dist.get_rank()
-        coord = self.device_mesh.get_coordinate()
-        self.coords = dict(zip(self.axis_names, (int(c) for c in coord)))
+        self.coords = dict(coords) if coords is not None else {
+            a: 0 for a in self.axis_names}
+        self.rank = 0
+        for a in self.axis_names:
+            self.rank = self.rank * self.shape[a] + self.coords[a]
+        self.log = log if log is not None else []
         self._groups: dict = {}
 
     @property
@@ -71,6 +73,55 @@ class Mesh:
         for a in self._axes(axes):
             idx = idx * self.shape[a] + self.coords[a]
         return idx
+
+    def group(self, axes):
+        from repro_torch.train.comm import AxesGroup
+        axes = self._axes(axes)
+        return AxesGroup(axes, self.axis_size(axes), self.axis_index(axes),
+                         self.log)
+
+    def topology(self, axes) -> Topology:
+        """The topology of ``axes``' flat rank space (row-major): when
+        the first of several axes is ``"pod"`` it is the inter-pod
+        (DCN) level and the rest are intra-pod; otherwise one pod.  One
+        intra-pod axis gives the two-parameter form, several keep one
+        ICI level each."""
+        axes = self._axes(axes)
+        sizes = [self.shape[a] for a in axes]
+        n = math.prod(sizes)
+        has_pod = axes[0] == "pod" and len(axes) > 1
+        intra = list(zip(axes, sizes))[1:] if has_pod else list(
+            zip(axes, sizes))
+        if len(intra) <= 1:
+            return Topology(nranks=n, ranks_per_pod=n // sizes[0]
+                            if has_pod else n)
+        levels = []
+        if has_pod:
+            levels.append(TopoLevel("dcn", sizes[0], DCN_LINK, dcn=True))
+        levels += [TopoLevel(nm, sz, ICI_LINK) for nm, sz in intra]
+        return Topology.from_levels(levels)
+
+
+class Mesh(MeshLayout):
+    """``shape`` ranks over ``axis_names``, on ``device_type`` ("cuda":
+    one card a rank, NCCL; "cpu": gloo)."""
+
+    def __init__(self, shape, axis_names, *, device_type: str = "cpu"):
+        from torch.distributed.device_mesh import init_device_mesh
+        names = tuple(axis_names)
+        n = math.prod(int(s) for s in shape)
+        world = dist.get_world_size()
+        if world != n:
+            raise ValueError(f"a mesh of {dict(zip(names, shape))} needs "
+                             f"{n} ranks, the process group has {world}")
+        self.device_type = device_type
+        self.device_mesh = init_device_mesh(
+            device_type, tuple(int(s) for s in shape),
+            mesh_dim_names=names)
+        coord = self.device_mesh.get_coordinate()
+        super().__init__(shape, names,
+                         coords=dict(zip(names, (int(c) for c in coord))))
+        assert self.rank == dist.get_rank()
 
     def group(self, axes):
         """The process group over ``axes`` that holds this rank."""
@@ -101,27 +152,6 @@ class Mesh:
             if self.rank in ranks:
                 mine = g
         return mine
-
-    def topology(self, axes) -> Topology:
-        """The topology of ``axes``' flat rank space (row-major): when
-        the first of several axes is ``"pod"`` it is the inter-pod
-        (DCN) level and the rest are intra-pod; otherwise one pod.  One
-        intra-pod axis gives the two-parameter form, several keep one
-        ICI level each."""
-        axes = self._axes(axes)
-        sizes = [self.shape[a] for a in axes]
-        n = math.prod(sizes)
-        has_pod = axes[0] == "pod" and len(axes) > 1
-        intra = list(zip(axes, sizes))[1:] if has_pod else list(
-            zip(axes, sizes))
-        if len(intra) <= 1:
-            return Topology(nranks=n, ranks_per_pod=n // sizes[0]
-                            if has_pod else n)
-        levels = []
-        if has_pod:
-            levels.append(TopoLevel("dcn", sizes[0], DCN_LINK, dcn=True))
-        levels += [TopoLevel(nm, sz, ICI_LINK) for nm, sz in intra]
-        return Topology.from_levels(levels)
 
 
 def _product(sizes):

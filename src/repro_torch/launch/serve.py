@@ -23,7 +23,13 @@ and the continuous-batching path over disaggregated KV pools.
         --smoke --continuous --device cpu --kv-transport kernel
 
 The prompt is fed token by token through the decode step (teacher
-forced), then ``--gen`` tokens are generated greedily.  ``--one-card``
+forced), then ``--gen`` tokens are generated greedily.  ``--mesh
+local|single|multi`` runs that decode on a mesh of ranks
+(``serve.step.mesh_decode_step``; under ``torchrun`` for more than one):
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch gemma2-2b --smoke --device cpu --mesh local --batch 4
+  ``--one-card``
 takes the config's cut for one card (jamba: one period, experts 0-7 of
 16; deepseek-v3: layers 0-3, experts 0-7 of 256; see the config files).
 Weights and prompts are random, drawn from seeded generators on the
@@ -91,10 +97,15 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
     ``cross_src`` (the encoder output) goes to every decode step of an
     encoder-decoder."""
     B, P = prompts.shape
-    max_len = P + gen
-    cache = init_serve_cache(cfg, B, max_len, device=prompts.device,
+    cache = init_serve_cache(cfg, B, P + gen, device=prompts.device,
                              dtype=params.embed.dtype)
-    decode = make_decode_step(cfg, opts)
+    return _loop(make_decode_step(cfg, opts), params, cache, prompts, gen,
+                 cross_src)
+
+
+def _loop(decode, params, cache, prompts, gen, cross_src):
+    P = prompts.shape[1]
+    max_len = P + gen
     tok = prompts[:, :1]
     outs, logits = [], []
     for i in range(max_len - 1):
@@ -106,6 +117,86 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
             tok = nxt
             outs.append(nxt[:, 0])
     return torch.stack(outs, 1), torch.stack(logits, 1)
+
+
+MESH_RANKS = {"single": 256, "multi": 512}
+
+
+def mesh_generate(args, cfg, device: torch.device):
+    """``generate`` on a mesh of ranks through ``mesh_decode_step``:
+    ``--mesh local`` is every rank of the group on the data axis, (n, 1)
+    over ``("data", "model")``; ``single`` / ``multi`` the production
+    meshes (256 / 512 ranks).  Every rank draws the same weights and
+    prompts, stores its share (``train.shard``) and decodes its own rows
+    of the batch.  Returns this rank's tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (ensure_process_group,
+                                         make_local_mesh,
+                                         make_production_mesh)
+    from repro_torch.serve.step import mesh_decode_step
+    from repro_torch.train import shard
+    from repro_torch.train.sharding import data_axes
+    created = ensure_process_group(device)
+    try:
+        world = dist.get_world_size()
+        need = MESH_RANKS.get(args.mesh)
+        if need is not None and world != need:
+            raise SystemExit(
+                f"--mesh {args.mesh} needs {need} ranks (one a mesh "
+                f"position of {'2 x 16 x 16' if need == 512 else '16 x 16'}"
+                f"); the group has {world}. Start {need} ranks under "
+                f"torchrun, or use --mesh local")
+        mesh = (make_local_mesh(device) if args.mesh == "local" else
+                make_production_mesh(multi_pod=args.mesh == "multi",
+                                     device_type=device.type))
+        d_axes = data_axes(mesh)
+        n_data = mesh.axis_size(d_axes)
+        if args.batch % n_data:
+            raise SystemExit(f"--batch {args.batch} does not divide over "
+                             f"the {n_data} ranks of the data axes")
+        params, prompts, cross = _inputs(args, cfg, device)
+        P = prompts.shape[1]
+        full = init_serve_cache(cfg, args.batch, P + args.gen,
+                                device="meta", dtype=params.embed.dtype)
+        step, (pspec, cspec) = mesh_decode_step(cfg, mesh, ServeOptions(),
+                                                params, full)
+        blocks = shard.cut_tree(params.state_dict(), pspec, mesh)
+        del params
+        cache = shard.zeros_tree(full, cspec, mesh, device=device)
+        rows = args.batch // n_data
+        r0 = mesh.axis_index(d_axes) * rows
+        mine = prompts[r0:r0 + rows]
+        cross = None if cross is None else cross[r0:r0 + rows]
+        out, _ = _loop(step, blocks, cache, mine, args.gen, cross)
+        if mesh.rank == 0:
+            print(f"mesh {dict(mesh.shape)}: rank 0 decoded rows "
+                  f"[{r0}, {r0 + rows}) of {args.batch}")
+            print(out[:, :12].cpu().numpy())
+        return out
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _inputs(args, cfg, device):
+    """Seeded weights, prompts and (an encoder-decoder's) encoder
+    output."""
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    params = M.init_params(cfg, generator=g, device=device)
+    g.manual_seed(1)
+    prompts = torch.randint(2, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=g, device=device)
+    cross = None
+    if cfg.encoder is not None:
+        g.manual_seed(2)
+        frames = torch.randn((args.batch, cfg.encoder.n_frames,
+                              cfg.encoder.d_model), generator=g,
+                             device=device).to(torch.bfloat16)
+        with torch.no_grad():
+            cross = M.encode(params, cfg, frames)
+    return params, prompts, cross
 
 
 def _substrate(args, device: torch.device) -> str | None:
@@ -424,6 +515,15 @@ def main(argv=None):
                     help="continuous mode: KV blocks per engine rank")
     ap.add_argument("--seed", type=int, default=0,
                     help="continuous mode: trace seed")
+    ap.add_argument("--mesh", default=None,
+                    choices=["local", "single", "multi"],
+                    help="decode on a mesh of ranks (mesh_decode_step): "
+                         "local = every rank of the group on the data "
+                         "axis (torchrun's group, or this process "
+                         "alone); single / multi = the 16x16 / 2x16x16 "
+                         "production meshes (256 / 512 ranks). Each rank "
+                         "stores its share of the weights and cache and "
+                         "decodes its rows (--batch must divide)")
     args = ap.parse_args(argv)
 
     # ---- argument validation (fail loudly, never deep in the loop) ----
@@ -444,6 +544,10 @@ def main(argv=None):
             ap.error(f"--requests must be >= 1 (got {args.requests})")
         if args.kv_blocks < 1:
             ap.error(f"--kv-blocks must be >= 1 (got {args.kv_blocks})")
+    if args.mesh is not None and (args.continuous
+                                  or args.ep_transport is not None):
+        ap.error("--mesh drives the single-shot decode; it does not "
+                 "combine with --continuous or --ep-transport")
     if args.resilience != "off" and not args.continuous \
             and args.ep_transport is None:
         # resilience threads through the KV transfer collectives and the
@@ -494,20 +598,9 @@ def main(argv=None):
         ap.error(e.args[0])
     if args.continuous:
         return _run_continuous(args, cfg, device)
-    g = torch.Generator(device=device)
-    g.manual_seed(0)
-    params = M.init_params(cfg, generator=g, device=device)
-    g.manual_seed(1)
-    prompts = torch.randint(2, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=g, device=device)
-    cross = None
-    if cfg.encoder is not None:
-        g.manual_seed(2)
-        frames = torch.randn((args.batch, cfg.encoder.n_frames,
-                              cfg.encoder.d_model), generator=g,
-                             device=device).to(torch.bfloat16)
-        with torch.no_grad():
-            cross = M.encode(params, cfg, frames)
+    if args.mesh is not None:
+        return mesh_generate(args, cfg, device)
+    params, prompts, cross = _inputs(args, cfg, device)
     if args.ep_transport is not None:
         ep_prefill(args, cfg, params, prompts, device)
 

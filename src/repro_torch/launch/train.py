@@ -24,8 +24,10 @@ process alone (NCCL on the card, gloo on the CPU).  Each rank reads its
 own rows of the global batch (``--batch`` must divide by the rank
 count).  ``--dp-mode explicit`` syncs the gradients through
 ``mpix_allreduce`` (``--dp-algorithm``, ``--grad-buckets``,
-``--dp-transport dist|kernel|auto``); ``fsdp`` sums them with the native
-collective.  Restart the same command after a crash or preemption: with
+``--dp-transport dist|kernel|auto``); ``fsdp`` on more than one rank
+stores each rank's share of every parameter and both moments
+(``train.step.sharded_train_step``: the native all-gather and
+reduce-scatter), on one rank it is the plain step.  Restart the same command after a crash or preemption: with
 ``--ckpt-dir`` it resumes from the newest committed checkpoint (with
 more ranks than one, each rank keeps its own copy under
 ``rank{r}/``).
@@ -47,8 +49,11 @@ from repro_torch.data import DataPipeline, PipelineConfig
 from repro_torch.launch.mesh import (ensure_process_group, make_local_mesh,
                                      make_production_mesh)
 from repro_torch.runtime import FaultTolerantLoop, PreemptionSignal
+from repro_torch.train import shard
+from repro_torch.train.sharding import batch_specs
 from repro_torch.train.step import (TrainOptions, data_axes,
-                                    init_train_state, make_train_step)
+                                    init_train_state, make_train_step,
+                                    sharded_train_step)
 
 
 @dataclasses.dataclass
@@ -259,10 +264,15 @@ def _train(args, device: torch.device) -> TrainRun:
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch), num_shards=mesh.axis_size(d_axes),
         shard=mesh.axis_index(d_axes))
-    step_fn = make_train_step(cfg, mesh, opts)
     g = torch.Generator(device=device)
     g.manual_seed(0)
     state = init_train_state(g, cfg, opts, device=device)
+    if opts.dp_mode == "fsdp" and mesh.size > 1:
+        step_fn, sspec = sharded_train_step(cfg, mesh, opts, state,
+                                            batch_specs(mesh))
+        state = shard.cut_tree(state, sspec, mesh)
+    else:
+        step_fn = make_train_step(cfg, mesh, opts)
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)

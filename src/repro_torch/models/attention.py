@@ -169,11 +169,15 @@ def init_cache(cfg: AttnConfig, batch: int, max_len: int, *, device=None,
 
 
 def decode_step(p: Attention, cfg: AttnConfig, x, cache: dict, *,
-                window=None, eps=1e-6):
+                window=None, eps=1e-6, seq=None):
     """One-token decode: x [B, 1, d]; returns (y [B, 1, d], cache').
 
     The new k/v row is written into the cache in place (the reference
-    returns a new cache array); ``cache["len"]`` is a host int."""
+    returns a new cache array); ``cache["len"]`` is a host int.  With
+    ``seq`` (``serve.step.SeqShard``) the cache holds positions
+    [seq.start, seq.start + S) of a sequence cut over ranks: the rank
+    that holds position ``len`` writes it, and ``seq.attend`` combines
+    the ranks' partial softmaxes (the mask from global positions)."""
     B = x.shape[0]
     t = cache["len"]
     positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
@@ -181,15 +185,29 @@ def decode_step(p: Attention, cfg: AttnConfig, x, cache: dict, *,
         positions = positions[None].expand(3, B, 1)
     q, k, v = _project_qkv(p, cfg, x, positions=positions, eps=eps)
     ck, cv = cache["k"], cache["v"]
-    ck[:, t] = k[:, 0]
-    cv[:, t] = v[:, 0]
+    start = 0 if seq is None else seq.start
     S = ck.shape[1]
-    kpos = torch.arange(S, device=x.device)[None, :]
+    if 0 <= t - start < S:
+        ck[:, t - start] = k[:, 0]
+        cv[:, t - start] = v[:, 0]
+    kpos = start + torch.arange(S, device=x.device)[None, :]
     win = window if window is not None else cfg.window
     mask = kpos <= t
     if win is not None:
         mask &= kpos > t - win
     mask = torch.broadcast_to(mask[:, None, :], (B, 1, S))
-    out = core_attention(q, ck, cv, mask, cap=cfg.softcap)
+    if seq is None:
+        out = core_attention(q, ck, cv, mask, cap=cfg.softcap)
+    else:
+        kk, vv = ck, cv
+        if cfg.n_heads != cfg.n_kv_heads:
+            g = cfg.n_heads // cfg.n_kv_heads
+            kk = kk.repeat_interleave(g, dim=2)
+            vv = vv.repeat_interleave(g, dim=2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                              kk.float()) * q.shape[-1] ** -0.5
+        if cfg.softcap is not None:
+            logits = softcap(logits, cfg.softcap)
+        out = seq.attend(logits, mask, vv)
     y = out.reshape(B, 1, -1) @ p.wo
     return y, {"k": ck, "v": cv, "len": t + 1}

@@ -104,15 +104,17 @@ def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache=None,
         moe_dispatch=None):
     """The feed-forward sublayer; with ``cache`` (decode) the channel
     mix reads and updates its token-shift carry ``cache["cmix"]`` and the
-    MoE takes the capacity dispatch.  A full-sequence MoE takes
-    ``moe_dispatch(p.moe, cfg.moe, h)`` when given (the capacity or
-    expert-parallel dispatch of training), else the dense dispatch."""
+    MoE takes the capacity dispatch.  An MoE takes ``moe_dispatch(p.moe,
+    cfg.moe, h)`` when given (the capacity or expert-parallel dispatch of
+    training; in decode, the capacity dispatch over a mesh's rows), else
+    the dense dispatch (full sequence) or the capacity dispatch
+    (decode)."""
     if spec.ff == "none":
         return x
     h = _norm(cfg, x, p.norm_ff)
     if spec.ff == "mlp":
         h = mlp.forward(p.mlp, h, cfg.mlp_act)
-    elif spec.ff == "moe" and cache is None and moe_dispatch is not None:
+    elif spec.ff == "moe" and moe_dispatch is not None:
         h = moe_dispatch(p.moe, cfg.moe, h)
     elif spec.ff == "moe" and cache is None:
         h = moe.forward(p.moe, cfg.moe, h, cfg.mlp_act)
@@ -204,16 +206,18 @@ def init_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache: dict, *,
-           cross_src=None):
-    """One-token decode; x [B, 1, d]."""
+           cross_src=None, seq=None, moe_dispatch=None):
+    """One-token decode; x [B, 1, d].  ``seq``: the layer's cache is a
+    block of a sequence cut over ranks (``attention.decode_step``);
+    ``moe_dispatch`` replaces the capacity dispatch (see ``_ff``)."""
     h = _norm(cfg, x, p.norm_mixer)
     if spec.mixer == "attn":
         h, cache["attn"] = attention.decode_step(
             p.attn, cfg.attn, h, cache["attn"], window=spec.window,
-            eps=cfg.norm_eps)
+            eps=cfg.norm_eps, seq=seq)
     elif spec.mixer == "mla":
         h, cache["mla"] = mla.decode_step(p.mla, cfg.mla, h, cache["mla"],
-                                          eps=cfg.norm_eps)
+                                          eps=cfg.norm_eps, seq=seq)
     elif spec.mixer == "rwkv":
         h, cache["rwkv"] = rwkv.decode_time_mix(p.rwkv, cfg.rwkv, h,
                                                 cache["rwkv"])
@@ -226,4 +230,4 @@ def decode(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache: dict, *,
     if cfg.post_block_norm:
         h = _norm(cfg, h, p.norm_mixer_post)
     return _ff(p, spec, cfg, _cross(p, spec, cfg, x + h, cross_src),
-               cache), cache
+               cache, moe_dispatch), cache

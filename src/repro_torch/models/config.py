@@ -137,6 +137,12 @@ class ModelConfig:
         from repro_torch.models.model import count_params
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token activates: the routed experts discounted
+        to ``top_k / n_experts`` (``count_params(active_only=True)``)."""
+        from repro_torch.models.model import count_params
+        return count_params(self, active_only=True)
+
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:

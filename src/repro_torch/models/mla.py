@@ -161,18 +161,32 @@ def init_cache(cfg: MLAConfig, batch: int, max_len: int, *, device=None,
             "len": 0}
 
 
-def decode_step(p: MLA, cfg: MLAConfig, x, cache: dict, *, eps=1e-6):
+def decode_step(p: MLA, cfg: MLAConfig, x, cache: dict, *, eps=1e-6,
+                seq=None):
     """One-token decode: x [B, 1, d]; returns (y [B, 1, d], cache').
     The new latent row is written into the cache in place; the cached
-    latents are up-projected each step, as in the reference."""
+    latents are up-projected each step, as in the reference.  With
+    ``seq`` the latents hold a block of a sequence cut over ranks (see
+    ``attention.decode_step``)."""
     B = x.shape[0]
     t = cache["len"]
     positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
     q_nope, q_rope, ckv, k_rope = _latents(p, cfg, x, positions, eps)
     c2, r2 = cache["ckv"], cache["kr"]
-    c2[:, t] = ckv[:, 0]
-    r2[:, t] = k_rope[:, 0]
+    start = 0 if seq is None else seq.start
     S = c2.shape[1]
-    mask = (torch.arange(S, device=x.device) <= t)[None, None, :]
-    y = _attend(p, cfg, q_nope, q_rope, c2, r2, mask.expand(B, 1, S))
+    if 0 <= t - start < S:
+        c2[:, t - start] = ckv[:, 0]
+        r2[:, t - start] = k_rope[:, 0]
+    mask = (start + torch.arange(S, device=x.device) <= t)[None, None, :]
+    mask = mask.expand(B, 1, S)
+    if seq is None:
+        y = _attend(p, cfg, q_nope, q_rope, c2, r2, mask)
+    else:
+        k_nope, v = _up(p, cfg, c2)
+        logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(),
+                               k_nope.float())
+                  + torch.einsum("bqhd,bkod->bhqk", q_rope.float(),
+                                 r2.float())) * cfg.qk_head_dim ** -0.5
+        y = seq.attend(logits, mask, v)
     return y.reshape(B, 1, -1) @ p.wo, {"ckv": c2, "kr": r2, "len": t + 1}

@@ -105,6 +105,14 @@ def from_state(cfg: ModelConfig, state: dict, *, device=None) -> Model:
     return m
 
 
+def held(layer):
+    """A layer as the block functions read it: a sharded layer
+    (``train.shard.ShardedLayer``) is gathered here, where the layer
+    runs (inside its period's remat region); a ``Block`` is itself."""
+    gather = getattr(layer, "gather", None)
+    return layer if gather is None else gather()
+
+
 def positions_for(cfg: ModelConfig, S: int, device=None):
     """The default prefill positions: [1, S], or [3, 1, S] (the three
     M-RoPE streams alike) for M-RoPE."""
@@ -123,7 +131,8 @@ def encode(p: Model, cfg: ModelConfig, frames):
     pos = torch.arange(frames.shape[1], dtype=torch.int32,
                        device=frames.device)[None, :]
     for layer in p.encoder.layers:
-        x = blocks.forward(layer, _ENCODER_SPEC, ecfg, x, positions=pos)
+        x = blocks.forward(held(layer), _ENCODER_SPEC, ecfg, x,
+                           positions=pos)
     return rmsnorm(x, p.encoder.final_norm, cfg.norm_eps)
 
 
@@ -151,7 +160,9 @@ def _logits(p: Model, cfg: ModelConfig, x):
 def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
             vision_embeds=None, encoder_frames=None, use_kernel=False,
             moe_dispatch=None, remat=False):
-    """tokens [B, S] -> logits [B, S, V].  An encoder-decoder takes
+    """tokens [B, S] -> logits [B, S, V]; ``p`` is a ``Model`` or a view
+    over sharded storage (``train.shard.sharded_model``).  An
+    encoder-decoder takes
     ``encoder_frames`` [B, n_frames, d_enc]; a VLM may take
     ``vision_embeds`` [B, n_vis, d].  ``moe_dispatch(p_moe, cfg_moe, x)``
     replaces the MoE layers' dense dispatch.  ``remat`` recomputes the
@@ -176,7 +187,7 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
 
     def run(x, span):
         for layer, spec in span:
-            x = blocks.forward(layer, spec, cfg, x, **kw)
+            x = blocks.forward(held(layer), spec, cfg, x, **kw)
         return x
 
     n_pre, n_per = len(cfg.prefix), len(cfg.period)
@@ -228,14 +239,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step(p: Model, cfg: ModelConfig, cache: dict, tokens, *,
-                cross_src=None):
+                cross_src=None, seqs=None, moe_dispatch=None):
     """tokens [B, 1] -> (logits [B, 1, V], cache'); the caches are
     updated in place.  ``cross_src`` is the encoder output for an
-    encoder-decoder (``encode``)."""
+    encoder-decoder (``encode``).  ``seqs``: per layer, None or the
+    ``SeqShard`` of a cache whose sequence is cut over ranks;
+    ``moe_dispatch`` replaces the MoE layers' capacity dispatch."""
     x = embed_tokens(p, cfg, tokens)
     layers = []
-    for layer, spec, lc in zip(p.layers, cfg.blocks(), cache["layers"]):
-        x, lc = blocks.decode(layer, spec, cfg, x, lc, cross_src=cross_src)
+    seqs = seqs or [None] * cfg.n_layers
+    for layer, spec, lc, seq in zip(p.layers, cfg.blocks(), cache["layers"],
+                                    seqs):
+        x, lc = blocks.decode(held(layer), spec, cfg, x, lc,
+                              cross_src=cross_src, seq=seq,
+                              moe_dispatch=moe_dispatch)
         layers.append(lc)
     return _logits(p, cfg, x), {"layers": layers}
 
@@ -245,7 +262,20 @@ def decode_step(p: Model, cfg: ModelConfig, cache: dict, tokens, *,
 # ---------------------------------------------------------------------------
 
 
-def count_params(cfg: ModelConfig) -> int:
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameters of the port's model (embedding once if tied), counted
-    on the ``meta`` device: nothing is allocated."""
-    return sum(t.numel() for t in Model(cfg, device="meta").parameters())
+    on the ``meta`` device: nothing is allocated.  ``active_only``
+    discounts the routed experts to the activated fraction ``top_k /
+    n_experts``, as the reference does: one ``int()`` over the summed
+    expert stacks of every MoE layer."""
+    m = Model(cfg, device="meta")
+    total = sum(t.numel() for t in m.parameters())
+    if active_only and cfg.moe is not None:
+        moe_total = sum(getattr(layer.moe, k).numel()
+                        for layer, spec in zip(m.layers, cfg.blocks())
+                        if spec.ff == "moe"
+                        for k in ("w_gate", "w_up", "w_down")
+                        if hasattr(layer.moe, k))
+        frac = 1.0 - cfg.moe.top_k / cfg.moe.n_experts
+        total -= int(moe_total * frac)
+    return total

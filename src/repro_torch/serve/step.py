@@ -5,6 +5,27 @@ The steps are plain functions over the port's ``Model`` on one device;
 with ``ServeOptions.ep_options`` the prefill's MoE layers take the
 expert-parallel dispatch over a mesh of ranks (``train.moe_dispatch``).
 Decode samples greedily (argmax), like the reference's step.
+
+``mesh_decode_step`` decodes on a mesh of ranks, each storing its share
+of the parameters (``train.shard``: a layer's are gathered while it
+runs) and of the cache (``train.sharding.cache_specs``):
+  * normal layout (decode_32k) -- batch rows over the data axes (each
+    rank decodes its own rows), the KV / latent sequence over ``model``;
+  * ``long_context`` (long_500k, batch 1) -- every rank decodes the same
+    tokens and the KV sequence is cut over every axis (the data axes
+    when it does not divide; MLA latents over the data axes).
+An attention layer over a sequence-cut cache computes, on each rank, the
+scores of its own positions (the mask from global positions), and the
+ranks combine them exactly by log-sum-exp: the group's max, then the
+sums of the exponentials and of their products with v (three
+all-reduces of O(heads) and O(heads x head_dim) values a row); no rank
+gathers the cache.  The rank holding position ``len`` writes the new
+k/v (latent) row.  Recurrent states (rwkv ``s``, mamba ``h`` and
+``conv``) are stored cut over ``model`` and gathered for the step, then
+cut again.  An MoE layer whose rows are cut over the data axes gathers
+the layer's input rows of the data group, runs the capacity dispatch on
+the whole batch (so the capacity and the drops are the one-device
+decode's) and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -14,12 +35,16 @@ from typing import Callable
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models.attention import NEG_INF
+from repro_torch.train import comm, shard, sharding
 from repro_torch.train.moe_dispatch import EPOptions, make_moe_dispatch
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeOptions:
     use_kernel: bool = False
+    long_context: bool = False       # the sequence-cut cache layout of
+                                     # batch-1 decode (mesh_decode_step)
     ep_options: EPOptions | None = None
     # explicit expert-parallel dispatch for MoE archs during prefill
     # (None = the dense dispatch).  With overlap_chunks set, the
@@ -94,3 +119,125 @@ def make_decode_step(cfg, opts: ServeOptions) -> Callable:
         return nxt[:, None], cache, last
 
     return decode
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A layer's cache block of a sequence cut over ``group``: global
+    position ``start`` is its row 0."""
+    start: int
+    group: object
+
+    def attend(self, logits, mask, v):
+        """The exact softmax over the whole sequence from each rank's
+        scores ``logits`` [B, H, q, S_loc] (f32), ``mask`` [B, q, S_loc]
+        and values ``v`` [B, S_loc, H, D]: -> [B, q, H, D] in v's
+        dtype.  Every position t holds a live key, so the max is
+        finite."""
+        logits = torch.where(mask[:, None], logits, NEG_INF)
+        m = comm.all_reduce(logits.amax(-1, keepdim=True), self.group,
+                            op="max")
+        e = torch.exp(logits - m)
+        den = comm.all_reduce(e.sum(-1, keepdim=True), self.group)
+        num = comm.all_reduce(
+            torch.einsum("bhqk,bkhd->bqhd", e, v.float()), self.group)
+        return (num / den.permute(0, 2, 1, 3)).to(v.dtype)
+
+
+_SEQ_LEAVES = ("k", "v", "ckv", "kr")
+
+
+def _layer_plans(spec_layer: dict, mesh):
+    """(the seq axes of the layer's KV / latent cache, {(sub, leaf):
+    ShardPlan} of its other leaves' non-row cuts)."""
+    seq, rec = (), {}
+    for sub, leaves in spec_layer.items():
+        for leaf, spec in leaves.items():
+            if spec is None:
+                continue
+            if leaf in _SEQ_LEAVES:
+                seq = tuple(a for a in sharding.entry_axes(spec[1])
+                            if mesh.shape[a] > 1)
+            else:
+                plan = shard.ShardPlan((None,) + tuple(spec[1:]), mesh)
+                if plan.cuts:
+                    rec[(sub, leaf)] = plan
+    return seq, rec
+
+
+def _rows_dispatch(cfg, mesh, d_axes):
+    """Decode's capacity dispatch (factor 2) over the batch rows of the
+    data group: every rank runs it on the gathered rows and keeps its
+    own."""
+    from repro_torch.models import moe as moe_mod
+    group = mesh.group(d_axes)
+
+    def dispatch(p, cfg_moe, h):
+        rows = h.shape[0]
+        whole = comm.all_gather(h.contiguous(), group)
+        out = moe_mod.forward_dropless(p, cfg_moe, whole, cfg.mlp_act,
+                                       capacity_factor=2.0)
+        r0 = mesh.axis_index(d_axes) * rows
+        return out[r0:r0 + rows]
+    return dispatch
+
+
+def mesh_decode_step(cfg, mesh, opts: ServeOptions, params, cache):
+    """The counterpart of the reference's ``jit_decode_step``: returns
+    ``(step, (pspec, cspec))``.  ``params`` (a ``Model`` or its state
+    dict) and ``cache`` (``init_serve_cache`` at the global batch and
+    length) give the full shapes, on any device (``meta`` included).
+    ``step(blocks, cache_blocks, tokens[, cross_src]) -> (next_tokens,
+    cache_blocks', logits)`` takes this rank's parameter blocks
+    (``shard.cut_tree(params, pspec, mesh)``), its cache blocks
+    (``shard.cut_tree(cache, cspec, mesh)``, or ``shard.zeros_tree``)
+    and its tokens: its rows over the data axes (``cross_src`` too), or
+    with ``opts.long_context`` every row.  ``mesh`` is a
+    ``launch.mesh.Mesh`` (every rank calls the step) or a ``MeshLayout``
+    (collectives recorded; the dry-run)."""
+    _check(opts)
+    if not isinstance(params, dict):
+        params = params.state_dict()
+    pspec = sharding.param_specs(params, cfg, mesh)
+    cspec = sharding.cache_specs(cache, cfg, mesh,
+                                 long_context=opts.long_context)
+    plans = shard.plans_for(pspec, mesh)
+    per_layer = [_layer_plans(ls, mesh) for ls in cspec["layers"]]
+    moe_dispatch = None
+    d_axes = tuple(a for a in sharding.data_axes(mesh) if mesh.shape[a] > 1)
+    if cfg.moe is not None and d_axes and not opts.long_context:
+        moe_dispatch = _rows_dispatch(cfg, mesh, d_axes)
+    for seq_axes, rec in per_layer:           # groups in one order
+        if seq_axes:
+            mesh.group(seq_axes)
+        for plan in rec.values():
+            for axes in plan.groups():
+                mesh.group(axes)
+
+    @torch.no_grad()
+    def step(blocks, cache, tokens, cross_src=None):
+        view = shard.sharded_model(cfg, blocks, plans)
+        seqs, full = [], []
+        for lc, (seq_axes, rec) in zip(cache["layers"], per_layer):
+            lc = {k: dict(v) for k, v in lc.items()}
+            for (sub, leaf), plan in rec.items():
+                lc[sub][leaf] = plan.gather(lc[sub][leaf])
+            start = 0
+            if seq_axes:
+                blk = next(lc[s][leaf] for s in lc for leaf in lc[s]
+                           if leaf in _SEQ_LEAVES)
+                start = mesh.axis_index(seq_axes) * blk.shape[1]
+            seqs.append(SeqShard(start, mesh.group(seq_axes))
+                        if seq_axes else None)
+            full.append(lc)
+        logits, new = M.decode_step(view, cfg, {"layers": full}, tokens,
+                                    cross_src=cross_src, seqs=seqs,
+                                    moe_dispatch=moe_dispatch)
+        for lc, (_, rec) in zip(new["layers"], per_layer):
+            for (sub, leaf), plan in rec.items():
+                lc[sub][leaf] = plan.cut(lc[sub][leaf])
+        last = logits[:, -1]
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)
+        return nxt[:, None], new, last
+
+    return step, (pspec, cspec)

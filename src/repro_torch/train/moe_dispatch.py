@@ -26,6 +26,7 @@ other's transposes; the router and the full expert stacks, used by a
 rank for its own tokens or experts only, get their gradients summed
 over the ranks that share them, so that a data-parallel sum over the
 data axes on top gives every rank the gradient of the one-device step.
+The collectives go through ``train.comm``.
 """
 from __future__ import annotations
 
@@ -33,11 +34,11 @@ import dataclasses
 import types
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import api as mpix
 from repro_torch.models import mlp, moe
 from repro_torch.models.config import MoEConfig
+from repro_torch.train import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,12 +79,12 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, kw):
         ctx.group, ctx.kw = group, kw
-        return mpix.mpix_alltoall(x.contiguous(), group, **kw)
+        return comm.mpix("alltoall", x.contiguous(), group, **kw)
 
     @staticmethod
     def backward(ctx, g):
-        return mpix.mpix_alltoall(g.contiguous(), ctx.group,
-                                  **ctx.kw), None, None
+        return comm.mpix("alltoall", g.contiguous(), ctx.group,
+                         **ctx.kw), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -92,8 +93,8 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group, kw):
-        ctx.rank, ctx.rows = dist.get_rank(group), x.shape[0]
-        return mpix.mpix_allgather(x.contiguous(), group, **kw)
+        ctx.rank, ctx.rows = comm.rank(group), x.shape[0]
+        return comm.mpix("allgather", x.contiguous(), group, **kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -112,10 +113,7 @@ class _SliceRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        out = g.new_empty((n * g.shape[0],) + tuple(g.shape[1:]))
-        dist.all_gather_into_tensor(out, g.contiguous(), group=ctx.group)
-        return out, None, None, None
+        return comm.all_gather(g.contiguous(), ctx.group), None, None, None
 
 
 class _SumGrad(torch.autograd.Function):
@@ -130,8 +128,7 @@ class _SumGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        g = comm.all_reduce(g.contiguous(), ctx.group)
         if ctx.div != 1:
             g = g / ctx.div
         return g, None, None

@@ -2,13 +2,14 @@
 communication layer into one step per (arch, mesh, options).
 
 Two DP modes (the paper's layering made operational):
-  * ``fsdp``     — the whole step on each rank's device; on a mesh whose
-                   data axes hold more than one rank, parameters
-                   replicated and gradients summed by the native
-                   collective (``dist.all_reduce``), so the result is
-                   the one-device step's: the "system MPI" substrate.
-                   (Sharding the parameters' storage is not part of the
-                   port yet.)
+  * ``fsdp``     — the native collectives: the "system MPI" substrate.
+                   ``make_train_step`` keeps every parameter whole on
+                   every rank and sums the gradients with
+                   ``dist.all_reduce`` (the one-device step's result);
+                   ``sharded_train_step`` stores each rank's block of
+                   every parameter and both moments (``state_specs``)
+                   and gathers a layer's parameters where it runs
+                   (``train.shard``): required for the 100B+ archs.
   * ``explicit`` — parameters replicated over the data axes; gradients
                    synchronized by *our* collectives with a selectable
                    algorithm + bucketing + optional inter-pod int8
@@ -33,14 +34,14 @@ import dataclasses
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.models import model as M
 from repro_torch.models import moe as moe_mod
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
 from repro_torch.optim.schedule import cosine_schedule
-from repro_torch.train import sync
+from repro_torch.train import comm, shard, sharding, sync
 from repro_torch.train.moe_dispatch import EPOptions, make_moe_dispatch
+from repro_torch.train.sharding import data_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,11 +106,6 @@ def init_train_state(generator: torch.Generator, cfg,
                                                device=dev)
                                 for k, p in params.items()}
     return state
-
-
-def data_axes(mesh) -> tuple[str, ...]:
-    """Axes carrying the global batch (pod + data when present)."""
-    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
 def _moe_dispatch(cfg, mesh, opts: TrainOptions):
@@ -202,8 +198,7 @@ def make_train_step(cfg, mesh, opts: TrainOptions) -> Callable:
     def step(state, batch):
         (lsum, cnt), grads = value_and_grad(sum_loss, state, batch)
         lsum = lsum.detach().clone()
-        cnt_g = cnt.clone()
-        dist.all_reduce(cnt_g, group=d_group)
+        cnt_g = comm.all_reduce(cnt, d_group)
         denom = torch.clamp(cnt_g, min=1).to(torch.float32)
         gnorm, residual = None, state.get("ef_residual")
         if opts.dp_mode == "fsdp":
@@ -226,8 +221,7 @@ def make_train_step(cfg, mesh, opts: TrainOptions) -> Callable:
                 buckets=opts.grad_buckets, denom=denom,
                 transport=opts.dp_transport, resilience=opts.resilience,
                 topo=d_topo)
-        dist.all_reduce(lsum, group=d_group)
-        lval = lsum / denom
+        lval = comm.all_reduce(lsum, d_group) / denom
         params, opt, gnorm, lr = opt_apply(state, grads, gnorm=gnorm)
         new, metrics = finish(state, params, opt, {
             "loss": lval, "grad_norm": gnorm, "lr": lr})
@@ -236,3 +230,101 @@ def make_train_step(cfg, mesh, opts: TrainOptions) -> Callable:
         return new, metrics
 
     return step
+
+
+def state_specs(state: dict, cfg, mesh, opts: TrainOptions) -> dict:
+    """The spec tree of the train state under the chosen mode (the
+    layout of ``state``; see ``train.sharding``): explicit mode
+    replicates everything; fsdp cuts ``params``, ``opt.mu``, ``opt.nu``
+    and ``ef_residual`` by ``param_specs``."""
+    def whole(tree):
+        return {k: (None,) * v.ndim for k, v in tree.items()}
+    if opts.dp_mode == "explicit":
+        pspecs = whole(state["params"])
+    else:
+        pspecs = sharding.param_specs(state["params"], cfg, mesh)
+    out = {"params": pspecs,
+           "opt": {"mu": pspecs, "nu": pspecs, "count": ()},
+           "step": ()}
+    if "ef_residual" in state:
+        out["ef_residual"] = pspecs
+    return out
+
+
+def sharded_train_step(cfg, mesh, opts: TrainOptions, state: dict,
+                       batch_spec_tree):
+    """The counterpart of the reference's ``jit_train_step``: returns
+    ``(step, sspec)``, ``sspec = state_specs(...)``.  ``state`` gives
+    the full shapes (tensors on any device, ``meta`` included); the step
+    takes and returns this rank's sharded state (``shard.cut_tree(state,
+    sspec, mesh)``; ``shard.gather_tree`` rebuilds the full one) and its
+    rows of the batch, as ``batch_spec_tree`` (a tree of batch specs,
+    e.g. ``sharding.batch_specs(mesh)`` a leaf) cuts them: rows over the
+    data axes.
+
+    fsdp: between steps each rank stores only its block of every
+    parameter and of both moments.  Each layer's parameters are
+    gathered where it runs (inside its remat region) and the gradient
+    comes back as the block's, summed over the data axes
+    (``train.shard``).  Per-rank losses are sums over live tokens;
+    ranks sum (loss, live count) over the data axes.  The clip sees the
+    global norm: each block's squares once, from the rank that owns it
+    (its coordinate 0 on every axis its spec does not name), summed
+    over the mesh.  AdamW then updates the blocks.  The model axis is
+    storage only: every model rank computes the same rows (no tensor
+    parallelism).  With ``moe_mode="mpix_ep"`` the expert stacks are
+    gathered whole and the dispatch cuts its experts from them (correct,
+    not lean).  Explicit mode: ``make_train_step``, everything
+    replicated.  Every collective goes through ``train.comm``, so on a
+    ``MeshLayout`` the step runs without ranks and records them."""
+    sspec = state_specs(state, cfg, mesh, opts)
+    specs = (batch_spec_tree.values() if isinstance(batch_spec_tree, dict)
+             else [batch_spec_tree])
+    for spec in specs:
+        if sharding.spec_axes(spec[:1]) != data_axes(mesh) \
+                or sharding.spec_axes(spec[1:]):
+            raise ValueError(f"batch spec {spec}: rows go over the data "
+                             f"axes {data_axes(mesh)}, nothing else")
+    if opts.dp_mode == "explicit":
+        return make_train_step(cfg, mesh, opts), sspec
+    if opts.dp_mode != "fsdp":
+        raise ValueError(f"unknown dp_mode {opts.dp_mode!r}")
+    plans = shard.plans_for(sspec["params"], mesh)
+    d_axes = data_axes(mesh)
+    d_group = mesh.group(d_axes) if d_axes else None
+    world = mesh.group(mesh.axis_names)
+    moe_dispatch = _moe_dispatch(cfg, mesh, opts)
+    sum_loss = _loss_fn(cfg, opts, moe_dispatch, reduction="sum_count")
+
+    def _sum(x, group):
+        return x if group is None else comm.all_reduce(x, group)
+
+    def step(state, batch):
+        blocks = {k: v.detach().requires_grad_(True)
+                  for k, v in state["params"].items()}
+        lsum, cnt = sum_loss(shard.sharded_model(cfg, blocks, plans), batch)
+        gs = torch.autograd.grad(lsum, list(blocks.values()),
+                                 allow_unused=True)
+        cnt_g = _sum(cnt, d_group)
+        denom = torch.clamp(cnt_g, min=1).to(torch.float32)
+        grads = {k: (torch.zeros_like(blocks[k]) if g is None else
+                     (g.float() / denom).to(g.dtype))
+                 for k, g in zip(blocks, gs)}
+        sq = torch.zeros((), dtype=torch.float32, device=lsum.device)
+        for k, g in grads.items():
+            if plans[k].owner:
+                sq = sq + torch.sum(torch.square(g.float()))
+        gnorm = torch.sqrt(_sum(sq, world))
+        scale = torch.clamp(opts.max_grad_norm / (gnorm + 1e-9), max=1.0)
+        grads = {k: (g.float() * scale).to(g.dtype)
+                 for k, g in grads.items()}
+        lr = cosine_schedule(state["step"], peak_lr=opts.peak_lr,
+                             warmup_steps=opts.warmup_steps,
+                             total_steps=opts.total_steps)
+        params, opt = adamw_update(state["params"], grads, state["opt"],
+                                   lr=lr, weight_decay=opts.weight_decay)
+        lval = _sum(lsum.detach(), d_group) / denom
+        new = dict(state, params=params, opt=opt, step=state["step"] + 1)
+        return new, {"loss": lval, "grad_norm": gnorm, "lr": lr}
+
+    return step, sspec

@@ -20,15 +20,15 @@ Gradients are dicts (parameter name -> tensor).  Each is widened to
 f32 and concatenated in the dict's order before the collective, and cut
 back to each leaf's dtype after the division, as the reference does.
 Every rank of the group calls with its own gradients; ``topo`` is the
-group's topology (default: one pod of the group's size).
+group's topology (default: one pod of the group's size).  The
+collectives go through ``train.comm``.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.core import api as mpix
 from repro_torch.optim.compress import compress_int8, decompress_int8
+from repro_torch.train import comm
 
 
 def _flatten(grads: dict):
@@ -62,15 +62,15 @@ def dp_allreduce(grads: dict, group, *, algorithm="xla", buckets=1,
     algorithms (ignored by "xla"); ``resilience`` arms the API's
     recovery ladder on each bucket's collective."""
     if denom is None:
-        denom = dist.get_world_size(group)
+        denom = comm.size(group)
     flat, meta = _flatten(grads)
     total = flat.numel()
     nb = max(1, buckets)
     per = -(-total // nb)
     parts = _pad(flat, per * nb).reshape(nb, per)
-    done = [mpix.mpix_allreduce(parts[i], group, algorithm=algorithm,
-                                transport=transport, resilience=resilience,
-                                topo=topo)
+    done = [comm.mpix("allreduce", parts[i], group, algorithm=algorithm,
+                      transport=transport, resilience=resilience,
+                      topo=topo)
             for i in range(nb)]
     return _unflatten(torch.cat(done)[:total] / denom, meta)
 
@@ -99,7 +99,7 @@ def dp_allreduce_overlap(grads: dict, group, *, algorithm="xla", chunks=2,
     if chunks < 1:
         raise ValueError(
             f"dp_allreduce_overlap: chunks must be >= 1, got {chunks}")
-    n = dist.get_world_size(group)
+    n = comm.size(group)
     if denom is None:
         denom = n
     flat, meta = _flatten(grads)
@@ -111,38 +111,21 @@ def dp_allreduce_overlap(grads: dict, group, *, algorithm="xla", chunks=2,
     shards = []
     gsq = torch.zeros((), dtype=torch.float32, device=flat.device)
     for i in range(chunks):
-        sh = mpix.mpix_reduce_scatter(parts[i], group, algorithm=rs_alg,
-                                      transport=transport,
-                                      resilience=resilience,
-                                      topo=topo) / denom
+        sh = comm.mpix("reduce_scatter", parts[i], group,
+                       algorithm=rs_alg, transport=transport,
+                       resilience=resilience, topo=topo) / denom
         gsq = gsq + torch.sum(torch.square(sh))
         shards.append(sh)
-    dist.all_reduce(gsq, group=group)
+    gsq = comm.all_reduce(gsq, group)
     gnorm = torch.sqrt(gsq)
     if max_norm is not None:
         scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
         shards = [sh * scale for sh in shards]
-    outs = [mpix.mpix_allgather(sh, group, algorithm=ag_alg,
-                                transport=transport, resilience=resilience,
-                                topo=topo)
+    outs = [comm.mpix("allgather", sh, group, algorithm=ag_alg,
+                      transport=transport, resilience=resilience,
+                      topo=topo)
             for sh in shards]
     return _unflatten(torch.cat(outs)[:total], meta), gnorm
-
-
-def _ring_shift(t: torch.Tensor, group) -> torch.Tensor:
-    """Each rank of ``group`` sends ``t`` to the next rank and receives
-    the previous rank's (the reference's ppermute ring)."""
-    n, r = dist.get_world_size(group), dist.get_rank(group)
-    g = group if group is not None else dist.group.WORLD
-    out = torch.empty_like(t)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, t.contiguous(),
-                   dist.get_global_rank(g, (r + 1) % n), group),
-        dist.P2POp(dist.irecv, out, dist.get_global_rank(g, (r - 1) % n),
-                   group)])
-    for req in reqs:
-        req.wait()
-    return out
 
 
 def dp_allreduce_compressed(grads: dict, residual: dict | None, *,
@@ -157,12 +140,13 @@ def dp_allreduce_compressed(grads: dict, residual: dict | None, *,
       4. divide by ``denom`` (the global live-token count; default the
          rank count of both groups).
     Returns (synced grads, new residual)."""
-    Q = dist.get_world_size(pod_group)
+    Q = comm.size(pod_group)
     if denom is None:
-        denom = Q * dist.get_world_size(data_group)
+        denom = Q * comm.size(data_group)
     flat, meta = _flatten(grads)
-    flat = mpix.mpix_allreduce(flat, data_group, algorithm=intra_algorithm,
-                               resilience=resilience, topo=data_topo)
+    flat = comm.mpix("allreduce", flat, data_group,
+                     algorithm=intra_algorithm, resilience=resilience,
+                     topo=data_topo)
     res_flat = (torch.zeros_like(flat) if residual is None
                 else _flatten(residual)[0])
     x = flat + res_flat
@@ -171,7 +155,7 @@ def dp_allreduce_compressed(grads: dict, residual: dict | None, *,
     new_res = x - sent
     acc, qc, sc = sent, q, s
     for _ in range(Q - 1):
-        qc = _ring_shift(qc, pod_group)
-        sc = _ring_shift(sc, pod_group)
+        qc = comm.ring_shift(qc, pod_group)
+        sc = comm.ring_shift(sc, pod_group)
         acc = acc + decompress_int8(qc, sc, x.shape, torch.float32)
     return _unflatten(acc / denom, meta), _unflatten(new_res, meta)

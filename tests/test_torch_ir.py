@@ -220,7 +220,7 @@ def test_port_imports_no_jax_no_reference_no_ml_dtypes():
         "mods = [m.name for m in pkgutil.walk_packages("
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 91, mods\n"
+        "assert len(mods) >= 96, mods\n"
         "assert {'repro_torch.core.plan', 'repro_torch.core.tuner', "
         "'repro_torch.core.kvtransfer', 'repro_torch.serve.engine', "
         "'repro_torch.serve.traffic', 'repro_torch.optim.adamw', "
@@ -228,7 +228,10 @@ def test_port_imports_no_jax_no_reference_no_ml_dtypes():
         "'repro_torch.data.pipeline', 'repro_torch.data._threefry', "
         "'repro_torch.train.step', 'repro_torch.train.sync', "
         "'repro_torch.train.moe_dispatch', 'repro_torch.core.pipeline', "
-        "'repro_torch.launch.mesh', 'repro_torch.launch.train'} "
+        "'repro_torch.launch.mesh', 'repro_torch.launch.train', "
+        "'repro_torch.train.sharding', 'repro_torch.launch.specs', "
+        "'repro_torch.launch.dryrun', 'repro_torch.train.shard', "
+        "'repro_torch.train.comm'} "
         "<= set(mods), mods\n"
         "bad = [k for k in sys.modules if k in ('jax', 'repro', 'ml_dtypes')"
         " or k.startswith(('jax.', 'repro.', 'ml_dtypes.'))]\n"
