@@ -115,7 +115,7 @@ def main() -> int:
         args = (1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], B, S, S,
                 H, K, D, D ** -0.5, cap or 0.0, 1, int(window is not None),
-                window or 0, stream)
+                window or 0, 0, stream)
         times = {}
         for name, fn in libs.items():
             times[name] = cs.time_ms(

@@ -262,6 +262,36 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              steps, normal layout at batch 4 and ``long_context`` at
              batch 1.  One rank is no evidence of data parallelism.
 
+10. model axis — phase (M), after (S): (M1) the flash kernel's query
+             offset: smollm-360m's training shape cut over a model axis
+             of 4 (q [8, 512, 15, 64] at each of the 4 block offsets of
+             S 2048, k/v [8, 2048, 5, 64]) and gemma2-2b's global and
+             local layers at S 8192 over 4 (q [1, 2048, 8, 256], k/v
+             [1, 8192, 4, 256], softcap 50, window 4096 on the local
+             one) in bf16, and the first in f32 at B 2: each block
+             within 3e-5 f32 / 2e-2 bf16 of ``flash_attention_plain``
+             with the offset and of the same rows of the whole call,
+             the bf16 blocks on the wgmma body; each block's ms beside
+             the whole call's; (M2) one model rank of the sequence-split
+             step, smollm-360m at B 8 x S 2048, remat, the flash kernel,
+             rank (0, 3) of a ``MeshLayout`` (1, 4) (the heaviest
+             causal block): its collectives are recorded, not run (the
+             layout's finite stand-ins), so its ms a step is the rank's
+             compute and the host's issue of it (the host's call to
+             return is printed beside it), printed beside phase (T)1's; the counters reset
+             just before it and read just after (its flash launches,
+             all wgmma); ``FlopCounterMode`` over the same rank's step
+             with the plain attention within 1% of the dry-run's count
+             for that layout and rank; (M3) one model rank of the mesh
+             decode at batch 4, rank (0, 0) of a (1, 4) layout, for
+             gemma2-2b and rwkv6-3b at full width: its parameter bytes,
+             its ms a step and its record, which must hold no parameter
+             all-gathered over ``model``: its gathers over ``model`` (but
+             the recurrent states') are exactly one a product of a kept
+             block (the tied head's included) and one a layer whose
+             state stays, each at most the rows times the widest such
+             output in f32.
+
 The last two lines of standard output are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, the script exits non-zero and prints no
@@ -388,6 +418,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sharding(torch, dev, trained)
+    gc.collect()
+    torch.cuda.empty_cache()
+    axis = model_axis(torch, dev, trained)
+    flash["model_axis"] = axis["flash"]
+    flash["launches_by_model"][f"{TRAIN_ARCH}-split-rank-step"] = \
+        axis["flash"]["launches"] // AXIS_STEPS
     print(f"phases of the remaining archs (s): {arch_s}; whole run "
           f"{time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3540,9 +3576,10 @@ def arch_serve_path(torch, dev, arch, cut, B, S, f32_layers) -> dict:
                   f"{tag} layer {len(errs)} kernel vs the plain core")
         return out
 
-    def kernel_core(p, c, q_nope, q_rope, ckv, k_rope):
-        out = real_core(p, c, q_nope, q_rope, ckv, k_rope)
-        check(out, mla._plain_core(p, c, q_nope, q_rope, ckv, k_rope),
+    def kernel_core(p, c, q_nope, q_rope, ckv, k_rope, q_start=0):
+        out = real_core(p, c, q_nope, q_rope, ckv, k_rope, q_start)
+        check(out, mla._plain_core(p, c, q_nope, q_rope, ckv, k_rope,
+                                   q_start),
               f"{tag} MLA layer {len(errs)} kernel vs the plain _attend")
         return out
 
@@ -4531,6 +4568,302 @@ def shard_mesh(torch, dev) -> dict:
     finally:
         if created:
             dist.destroy_process_group()
+
+
+
+# ---------------------------------------------------------------------------
+# the model axis: the flash kernel's offset, one split rank, resident decode
+# ---------------------------------------------------------------------------
+
+AXIS_N = 4                       # the model axis of (M)'s layouts
+AXIS_RANK = 3                    # (M2): the last block, the most work
+AXIS_STEPS = 3                   # (M2): steps timed after one warm-up
+AXIS_DECODE_ARCHS = ("gemma2-2b", "rwkv6-3b")
+AXIS_DECODE_B, AXIS_DECODE_LEN, AXIS_DECODE_STEPS = 4, 64, 8
+AXIS_FLOPS_REL = 0.01
+# (M1): (what, dtype, (B, S, H, K, D) of the whole call, window, softcap)
+AXIS_OFFSET_CASES = (
+    (f"{TRAIN_ARCH} training layer", "bfloat16", (8, 2048, 15, 5, 64), None,
+     None),
+    (f"{SERVE_ARCH} global layer", "bfloat16", (1, 8192, 8, 4, 256), None,
+     50.0),
+    (f"{SERVE_ARCH} local layer", "bfloat16", (1, 8192, 8, 4, 256), 4096,
+     50.0),
+    (f"{TRAIN_ARCH} training layer, f32 (CUDA-core body)", "float32",
+     (2, 2048, 15, 5, 64), None, None))
+
+
+def model_axis(torch, dev, trained) -> dict:
+    """Phase (M): (M1) the flash kernel's offset, (M2) one model rank of
+    the sequence-split step, (M3) one model rank of the decode with
+    resident blocks."""
+    t0 = time.perf_counter()
+    out = {"offset": axis_offset(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["flash"] = axis_split_step(torch, dev, trained)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode"] = [axis_decode(torch, dev, a) for a in AXIS_DECODE_ARCHS]
+    out["flash"]["offset_cases"] = out["offset"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"model axis: phase {out['seconds']:.2f} s", flush=True)
+    return out
+
+
+def axis_offset(torch, dev) -> list[dict]:
+    """(M1): each block of rows of a query sequence cut over AXIS_N
+    ranks, run with its ``q_start``, against the plain version with the
+    offset and against the same rows of the whole call."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.kernel import flash_attention_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows = []
+    for what, dtype, (B, S, H, K, D), win, cap in AXIS_OFFSET_CASES:
+        dtype = getattr(torch, dtype)
+        q = torch.randn((B, S, H, D), generator=gen, device=dev, dtype=dtype)
+        k, v = (torch.randn((B, S, K, D), generator=gen, device=dev,
+                            dtype=dtype) for _ in range(2))
+        tol = ATTN_TOL[str(dtype)[6:]]
+
+        def kern(q, start=0):
+            return attn_ops.flash_attention(q, k, v, True, win, cap,
+                                            q_start=start)
+        whole = kern(q)
+        whole_ms = time_ms(torch, kern, q)
+        blk = S // AXIS_N
+        blocks = []
+        for r in range(AXIS_N):
+            qb = q[:, r * blk:(r + 1) * blk]
+            body = _body_of(torch, kern, qb, r * blk)
+            want_body = "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+            _require(body == want_body, f"M1 {what} block {r}: {body} body")
+            got = kern(qb, r * blk)
+            err = _close(torch, got, flash_attention_plain(
+                qb, k, v, causal=True, window=win, softcap=cap,
+                q_start=r * blk), tol, tol, f"M1 {what} block {r} vs plain")
+            err_whole = _close(torch, got, whole[:, r * blk:(r + 1) * blk],
+                               tol, tol, f"M1 {what} block {r} vs whole")
+            bitwise = bool(torch.equal(got, whole[:, r * blk:(r + 1) * blk]))
+            ms = time_ms(torch, kern, qb, r * blk)
+            blocks.append({"q_start": r * blk, "ms": ms, "body": body,
+                           "max_abs_err": err, "vs_whole": err_whole,
+                           "bitwise_whole_rows": bitwise})
+        label = (f"{what}: q {[B, blk, H, D]} at offsets 0..{S - blk} of S "
+                 f"{S}, k/v {[B, S, K, D]} {str(dtype)[6:]}, window {win}, "
+                 f"softcap {cap}")
+        print(f"model axis M1 | {label}: blocks " + ", ".join(
+            f"[{b['q_start']}] {b['ms']:.4f} ms ({b['body']}, err "
+            f"{b['max_abs_err']:.3g}, vs whole rows {b['vs_whole']:.3g}"
+            f"{', bitwise' if b['bitwise_whole_rows'] else ''})"
+            for b in blocks) + f"; the whole call {whole_ms:.4f} ms "
+            f"(blocks sum {sum(b['ms'] for b in blocks):.4f} ms)",
+            flush=True)
+        rows.append({"case": label, "whole_ms": whole_ms, "blocks": blocks})
+        del q, k, v, whole
+    return rows
+
+
+def _axis_layout(coords):
+    from repro_torch.launch.mesh import MeshLayout
+    return MeshLayout((1, AXIS_N), ("data", "model"), coords=coords)
+
+
+def axis_split_step(torch, dev, trained) -> dict:
+    """(M2): model rank (0, AXIS_RANK) of the sequence-split step on a
+    (1, AXIS_N) layout at phase (T)'s config, with the flash kernel:
+    ms a step (the layout's collectives are recorded, not run), its
+    flash launches; then ``FlopCounterMode`` over the same rank's step
+    with the plain attention against the dry-run's count."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs, cuda
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.train import shard
+    from repro_torch.train.sharding import batch_specs
+    from repro_torch.train.step import (TrainOptions, init_train_state,
+                                        sharded_train_step)
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    B, S = 8, 2048
+    coords = {"data": 0, "model": AXIS_RANK}
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    batch = DataPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch(
+        0, device=dev)
+    res = {}
+    for use_kernel in (True, False):
+        layout = _axis_layout(coords)
+        opts = TrainOptions(remat=True, use_kernel=use_kernel)
+        full = init_train_state(g, cfg, opts, device=dev)
+        step, sspec = sharded_train_step(cfg, layout, opts, full,
+                                         batch_specs(layout))
+        state = shard.cut_tree(full, sspec, layout)
+        del full
+        if use_kernel:
+            new, m = step(state, batch)              # warm-up
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            bodies = dict(cuda.FLASH_BODIES)
+            per, issue = [], []
+            for _ in range(AXIS_STEPS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                a.record()
+                new, m = step(state, batch)
+                b.record()
+                issue.append((time.perf_counter() - t) * 1e3)
+                b.synchronize()
+                per.append(a.elapsed_time(b))
+            launches = dict(cuda.LAUNCHES)["flash_attention"]
+            wgmma = cuda.FLASH_BODIES["wgmma"] - bodies["wgmma"]
+            _require(math.isfinite(float(m["loss"])), "M2: loss not finite")
+            res.update(ms=statistics.median(per), all_ms=per,
+                       issue_ms=statistics.median(issue),
+                       launches=launches, wgmma=wgmma,
+                       log=len(layout.log))
+            del new, m
+        else:
+            torch.cuda.synchronize()
+            with FlopCounterMode(display=False) as fc:
+                new, m = step(state, batch)
+                torch.cuda.synchronize()
+            res["card_flops"] = fc.get_total_flops()
+            del new, m
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    n_attn = sum(1 for s in cfg.blocks() if s.mixer == "attn")
+    want = AXIS_STEPS * 2 * n_attn
+    _require(res["launches"] == want and res["wgmma"] == want,
+             f"M2: {res['launches']} flash launches ({res['wgmma']} wgmma), "
+             f"want {want}")
+    ins = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+           for k in ("tokens", "labels")}
+    pred = dryrun.analyse_cell(cfg, "train", ins, _axis_layout(coords),
+                               train_overrides={"remat": True})
+    rel = abs(pred["flops_per_device"] - res["card_flops"]) / res[
+        "card_flops"]
+    t1 = trained["launcher"]["ms_per_step"]
+    print(f"model axis M2 | sequence-split step, {TRAIN_ARCH} B {B} x S {S}, "
+          f"remat, flash kernel, rank (0, {AXIS_RANK}) of a (1, {AXIS_N}) "
+          f"layout (rows {AXIS_RANK * S // AXIS_N}-{S - 1}; collectives "
+          f"recorded, not run: {res['log']} records over the warm-up and "
+          f"{AXIS_STEPS} steps): {res['ms']:.3f} ms a step (median of "
+          f"{[round(x, 3) for x in res['all_ms']]}; the host's call to "
+          f"return {res['issue_ms']:.3f} ms: where it is near the step's "
+          f"ms, the host's issue holds the step), phase (T)1's whole "
+          f"step {t1:.3f} ms; flash launches {res['launches']} in "
+          f"{AXIS_STEPS} steps, all wgmma; FLOPs: FlopCounterMode on the "
+          f"card (plain attention) {res['card_flops']:.6e}, dry-run "
+          f"{pred['flops_per_device']:.6e} (rel {rel:.3g})", flush=True)
+    _require(rel < AXIS_FLOPS_REL, f"M2: dry-run FLOPs off by {rel:.3g}")
+    return {"launches": res["launches"], "ms_per_step": res["ms"],
+            "ms_all": res["all_ms"], "host_issue_ms": res["issue_ms"],
+            "card_flops": res["card_flops"],
+            "dryrun_flops": pred["flops_per_device"], "flops_rel": rel,
+            "phase_t1_ms": t1}
+
+
+def _model_gathers(cfg, layout, pspec, cspec, full, B) -> tuple:
+    """(M3): the all-gathers over ``model`` a decode step makes, but the
+    recurrent states': one output a product of a block kept over
+    ``model`` (an expert stack's and an untied table's lookups all-reduce
+    instead) and one a layer whose state ``s`` stays where it is stored;
+    and the bytes each may hold: the rows times the widest such output
+    in f32, less than any cache or parameter block."""
+    from repro_torch.train import shard, sharding
+    plans = shard.plans_for(pspec, layout, keep=lambda k, s: ("model",))
+    kept = [full[k].shape[p.kept[0][0]] for k, p in plans.items()
+            if p.kept and not (".moe.w_" in k and ".shared." not in k)
+            and (k != "embed" or cfg.tie_embeddings)]
+    n_s = sum(any("model" in sharding.entry_axes(e) for e in spec)
+              for layer in cspec["layers"] for leaves in layer.values()
+              for leaf, spec in leaves.items()
+              if leaf == "s" and spec is not None)
+    return len(kept) + n_s, B * max(kept + [cfg.d_model]) * 4
+
+
+def axis_decode(torch, dev, arch) -> dict:
+    """(M3): rank (0, 0) of ``mesh_decode_step`` on a (1, AXIS_N) layout
+    at full width, batch 4: parameter bytes, ms a step, the record."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve.step import (ServeOptions, init_serve_cache,
+                                        mesh_decode_step)
+    from repro_torch.train import shard
+
+    cfg = configs.get_config(arch)
+    layout = _axis_layout({"data": 0, "model": 0})
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    full = M.init_params(cfg, generator=g, device=dev).state_dict()
+    meta = init_serve_cache(cfg, AXIS_DECODE_B, AXIS_DECODE_LEN,
+                            device="meta")
+    step, (pspec, cspec) = mesh_decode_step(cfg, layout, ServeOptions(),
+                                            full, meta)
+    expect = _model_gathers(cfg, layout, pspec, cspec, full, AXIS_DECODE_B)
+    blocks = shard.cut_tree(full, pspec, layout)
+    full_bytes = sum(t.numel() * t.element_size() for t in full.values())
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = shard.zeros_tree(meta, cspec, layout, device=dev)
+    g.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (AXIS_DECODE_B,
+                                             AXIS_DECODE_STEPS),
+                         generator=g, device=dev, dtype=torch.int32)
+    per, logs = [], []
+    for i in range(AXIS_DECODE_STEPS):
+        del layout.log[:]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, cache, last = step(blocks, cache, toks[:, i:i + 1])
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t) * 1e3)
+        logs.append(list(layout.log))
+        _require(bool(torch.isfinite(last.float()).all()),
+                 f"M3 {arch}: logits not finite")
+    bad = [e for log in logs for e in log
+           if e[0] == "all-gather" and e[5] == "param" and "model" in e[4]]
+    _require(not bad, f"M3 {arch}: parameters gathered over model: {bad[:3]}")
+    n_act, bound = expect
+    for i, log in enumerate(logs):
+        acts = [e for e in log if e[0] == "all-gather" and e[5] != "state"
+                and "model" in (e[4] or ())]
+        _require(len(acts) == n_act and all(
+            e[5] == "" and e[2] <= bound for e in acts),
+            f"M3 {arch} step {i}: {len(acts)} gathers over model, want "
+            f"{n_act} activations of at most {bound:,} B: "
+            f"{[e for e in acts if e[5] or e[2] > bound][:3]}")
+    summary: dict = {}
+    for kind, n, nbytes, wire, axes, what in logs[-1]:
+        key = f"{kind} over {'x'.join(axes or ())} ({what or 'activation'})"
+        c = summary.setdefault(key, [0, 0])
+        c[0] += 1
+        c[1] += nbytes
+    pbytes = sum(t.numel() * t.element_size() for t in blocks.values())
+    ms = statistics.median(per[1:])
+    print(f"model axis M3 | mesh decode, {arch} batch {AXIS_DECODE_B}, rank "
+          f"(0, 0) of a (1, {AXIS_N}) layout (collectives recorded, not "
+          f"run): parameter blocks {pbytes:,} B of {full_bytes:,} B; "
+          f"{ms:.3f} ms a step (host clock, median of steps 2-"
+          f"{AXIS_DECODE_STEPS}); a step's record: " + "; ".join(
+              f"{k}: {c} calls, {b:,} B" for k, (c, b) in summary.items())
+          + f"; no parameter gathered over model; {expect[0]} gathers "
+          f"over model a step, one a kept product (the tied head's "
+          f"included) and one a layer whose state stays, each at most "
+          f"{expect[1]:,} B", flush=True)
+    del blocks, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "param_bytes": pbytes, "full_bytes": full_bytes,
+            "ms_per_step": ms, "record": summary,
+            "model_gathers": expect[0], "model_gather_bound": expect[1]}
 
 
 if __name__ == "__main__":

@@ -7,16 +7,19 @@
 // prologue.
 //
 // What it computes, per (batch b, query head h, query row t), with
-// kv head h / group (GQA) and positions counted from 0 in q and in k:
+// kv head h / group (GQA), key positions counted from 0 and query row t
+// at position i = q_start + t (q_start 0 but for a block of a longer
+// query sequence, e.g. a model rank's rows of a sequence cut over ranks):
 //   s[t, u] = cap * tanh(((q[t] * scale) . k[u]) / cap)   (no cap: plain)
-//   s[t, u] = -1e30 where the mask drops u: causal u <= t, window
-//             u > t - window
+//   s[t, u] = -1e30 where the mask drops u: causal u <= i, window
+//             u > i - window
 //   out[t]  = sum_u softmax(s[t])[u] * v[u]               (f32, one store)
 // With GATHER, row t attends with q row q_rows[b, t] of the token-order
 // q buffer; q_rows outside [0, Sq) (the dispatch's -1) gives an exact
-// zero output row.  Masks use the output order t.  Keys past Sk weigh
-// 0.  A row with no live key at all (window set and t >= Sk + window -
-// 1) weighs every key below Sk equally, as the reference does.
+// zero output row.  Masks use the output order t (its position i).
+// Keys past Sk weigh 0.  A row with no live key at all (window set and
+// i >= Sk + window - 1) weighs every key below Sk equally, as the
+// reference does.
 //
 // Bound: operations for long sequences (4 * D per live (t, u) pair and
 // head, on the bf16 tensor cores at 989 TFLOP/s), bytes (q, k, v read
@@ -131,6 +134,7 @@ struct Params {
   int Sq, Sk, H, group, D;
   float scale, cap;            // cap <= 0: no softcap
   int causal, has_window, window;
+  int q_start;                 // position of query row 0
 };
 
 size_t smem_bytes(int D) {
@@ -177,14 +181,15 @@ flash_attention_kernel(const Params p) {
     qs[r * ld + c] = src >= 0 ? to_f32(qg[src * p.sqs + c]) * p.scale : 0.f;
   }
 
-  // ---- the kv tiles some row of this q tile can see ----
-  const int q_last = min(q0 + BQ, p.Sq) - 1;
+  // ---- the kv tiles some row of this q tile can see (by position) ----
+  const int i0 = p.q_start + q0;
+  const int i_last = p.q_start + min(q0 + BQ, p.Sq) - 1;
   int k_lo = 0, k_hi = p.Sk;
   const bool dead_row = p.has_window &&
-      (p.window < 1 || q_last >= p.Sk + p.window - 1);
+      (p.window < 1 || i_last >= p.Sk + p.window - 1);
   if (!dead_row) {
-    if (p.causal) k_hi = min(k_hi, q_last + 1);
-    if (p.has_window) k_lo = max(0, q0 - p.window + 1);
+    if (p.causal) k_hi = min(k_hi, i_last + 1);
+    if (p.has_window) k_lo = max(0, i0 - p.window + 1);
   }
   const int j_lo = k_lo / BK, j_hi = (k_hi + BK - 1) / BK;
 
@@ -236,7 +241,7 @@ flash_attention_kernel(const Params p) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int r = ty + 16 * i, c = tx + 16 * jj;
-        const int t = q0 + r, u = k0 + c;
+        const int t = p.q_start + q0 + r, u = k0 + c;
         float x = s[i][jj];
         if (p.cap > 0.f) x = p.cap * tanhf(x / p.cap);
         bool live = true;
@@ -334,7 +339,8 @@ template <int DP> struct Tiles {
 };
 
 // The kv tiles a q tile [q0, q0 + bq) visits, [j_lo, j_hi), and among
-// them the interior ones, [i_lo, i_hi), whose every score is live.
+// them the interior ones, [i_lo, i_hi), whose every score is live; its
+// rows sit at positions q_start + q0 ...
 // tile_classes() in kernels/attention/kernel.py mirrors this line for
 // line, and tests/test_torch_attention_tiles.py holds it against a
 // brute-force mask.
@@ -342,8 +348,10 @@ struct KvRange { int j_lo, j_hi, i_lo, i_hi; };
 
 __device__ __forceinline__ KvRange kv_range(int q0, int bq, int bk, int Sq,
                                             int Sk, int causal,
-                                            int has_window, int window) {
-  const int q_last = min(q0 + bq, Sq) - 1;
+                                            int has_window, int window,
+                                            int q_start) {
+  const int q_last = q_start + min(q0 + bq, Sq) - 1;
+  q0 += q_start;
   int k_lo = 0, k_hi = Sk;
   const bool dead_row = has_window &&
       (window < 1 || q_last >= Sk + window - 1);
@@ -628,6 +636,7 @@ struct Softmax {
   float k_tanh;               // 2 log2 e * scale / cap
   float cap_l2;               // cap * log2 e
   int Sk, causal, has_window, window;
+  int q_start;                // position of output row 0
 };
 
 // One score tile of this thread (rows row0 and row0 + 8, columns k0 +
@@ -650,7 +659,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2],
     else
       y = s[i] * sm.scale_l2;
     if (EDGE) {
-      const int t = row0 + 8 * ((i >> 1) & 1);
+      const int t = sm.q_start + row0 + 8 * ((i >> 1) & 1);
       const int u = k0 + 8 * (i >> 2) + 2 * c4 + (i & 1);
       const bool live = (!sm.causal || u <= t) &&
                         (!sm.has_window || u > t - sm.window);
@@ -852,7 +861,7 @@ flash_attention_wgmma_kernel(const Params p,
   const int q0 = (nq - 1 - (int)blockIdx.y) * WQ;   // longest tiles first
   const int kh = h / p.group;
   const KvRange kr = kv_range(q0, WQ, BK, p.Sq, p.Sk, p.causal,
-                              p.has_window, p.window);
+                              p.has_window, p.window, p.q_start);
   const int n = kr.j_hi - kr.j_lo;                  // >= 1 when Sk >= 1
   const int tid = threadIdx.x;
 
@@ -925,7 +934,7 @@ flash_attention_wgmma_kernel(const Params p,
 
     const Softmax smx{p.scale * LOG2E, 2.f * LOG2E * p.scale / p.cap,
                       p.cap * LOG2E, p.Sk, p.causal, p.has_window,
-                      p.window};
+                      p.window, p.q_start};
     Consumer<DP, CAP> cs(sm, smx, w, n, row0, lane & 3, lane);
     // kv tiles from the last down: the first (masked always), then the
     // edge tiles above the interior ones, the interior ones, and the
@@ -1080,10 +1089,10 @@ Params make_params(const void* q, const void* k, const void* v,
                    int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
                    int64_t svb, int64_t svs, int64_t svh, int Sq, int Sk,
                    int H, int K, int D, float scale, float cap, int causal,
-                   int has_window, int window) {
+                   int has_window, int window, int q_start) {
   return Params{q, k, v, q_rows, out, sqb, sqs, sqh, skb, sks, skh, svb,
                 svs, svh, Sq, Sk, H, H / K, D, scale, cap, causal,
-                has_window, window};
+                has_window, window, q_start};
 }
 
 template <bool GATHER>
@@ -1092,13 +1101,13 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
              int64_t sqh, int64_t skb, int64_t sks, int64_t skh,
              int64_t svb, int64_t svs, int64_t svh, int B, int Sq, int Sk,
              int H, int K, int D, float scale, float cap, int causal,
-             int has_window, int window, void* stream) {
+             int has_window, int window, int q_start, void* stream) {
   if (D < 1 || K < 1 || H % K || smem_bytes(D) > (size_t)kSmemMax)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const Params p = make_params(q, k, v, q_rows, out, sqb, sqs, sqh, skb, sks,
                                skh, svb, svs, svh, Sq, Sk, H, K, D, scale,
-                               cap, causal, has_window, window);
+                               cap, causal, has_window, window, q_start);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return with_width<float, GATHER>(p, B, st);
@@ -1115,16 +1124,17 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike).  q [B, Sq,
 // H, D], k/v [B, Sk, K, D] with the given element strides (the last
 // dimension contiguous); out [B, Sq, H, D] contiguous.  cap <= 0 means
-// no softcap; has_window = 0 means no window.
+// no softcap; has_window = 0 means no window; q row t sits at position
+// q_start + t of the keys' sequence (for the masks).
 extern "C" int repro_flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* out,
     int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb, int64_t sks,
     int64_t skh, int64_t svb, int64_t svs, int64_t svh, int B, int Sq,
     int Sk, int H, int K, int D, float scale, float cap, int causal,
-    int has_window, int window, void* stream) {
+    int has_window, int window, int q_start, void* stream) {
   return dispatch<false>(dtype, q, k, v, nullptr, out, sqb, sqs, sqh, skb,
                          sks, skh, svb, svs, svh, B, Sq, Sk, H, K, D, scale,
-                         cap, causal, has_window, window, stream);
+                         cap, causal, has_window, window, q_start, stream);
 }
 
 // The same attention with the q-row gather prologue: q_rows [B, Sq]
@@ -1134,10 +1144,11 @@ extern "C" int repro_flash_attention_gather(
     const int* q_rows, void* out, int64_t sqb, int64_t sqs, int64_t sqh,
     int64_t skb, int64_t sks, int64_t skh, int64_t svb, int64_t svs,
     int64_t svh, int B, int Sq, int Sk, int H, int K, int D, float scale,
-    float cap, int causal, int has_window, int window, void* stream) {
+    float cap, int causal, int has_window, int window, int q_start,
+    void* stream) {
   return dispatch<true>(dtype, q, k, v, q_rows, out, sqb, sqs, sqh, skb,
                         sks, skh, svb, svs, svh, B, Sq, Sk, H, K, D, scale,
-                        cap, causal, has_window, window, stream);
+                        cap, causal, has_window, window, q_start, stream);
 }
 
 // Which body a call with these arguments runs: 1 the Hopper (wgmma)
@@ -1150,6 +1161,6 @@ extern "C" int repro_flash_attention_body(
   if (K < 1 || H % K) return 0;
   const Params p = make_params(q, k, v, nullptr, out, sqb, sqs, sqh, skb,
                                sks, skh, svb, svs, svh, Sq, Sk, H, K, D, 1.f,
-                               0.f, 0, 0, 0);
+                               0.f, 0, 0, 0, 0);
   return dtype == 1 && wgmma_fits(p, B) ? 1 : 0;
 }

@@ -75,12 +75,13 @@ _SIGNATURES = {
     "repro_rmsnorm": [_i, _i, _vp, _vp, _vp, _i64, _i, _f, _i, _i, _i,
                       _vp],
     # dtype, q, k, v, out, q/k/v strides over (b, s, h), B, Sq, Sk, H, K,
-    # D, scale, cap, causal, has_window, window, stream
+    # D, scale, cap, causal, has_window, window, q_start, stream
     "repro_flash_attention": [_i] + [_vp] * 4 + [_i64] * 9 + [_i] * 6
-                             + [_f, _f, _i, _i, _i, _vp],
+                             + [_f, _f, _i, _i, _i, _i, _vp],
     # the same with q_rows after v
     "repro_flash_attention_gather": [_i] + [_vp] * 5 + [_i64] * 9
-                                    + [_i] * 6 + [_f, _f, _i, _i, _i, _vp],
+                                    + [_i] * 6 + [_f, _f, _i, _i, _i, _i,
+                                                  _vp],
     # which body those run: dtype, q, k, v, out, strides, B, Sq, Sk, H,
     # K, D
     "repro_flash_attention_body": [_i] + [_vp] * 4 + [_i64] * 9 + [_i] * 6,

@@ -14,7 +14,10 @@ through a TMA ring, the attention weights rounded to bf16 for the P.V
 product); f32, and other bf16 shapes, on the CUDA cores in f32.  Each
 launch counts in ``cuda.FLASH_BODIES`` under the body that ran it.
 ``tile_classes`` gives the kv tiles the Hopper body visits for each q
-tile, and which of them take no mask.
+tile, and which of them take no mask.  ``q_start`` places query row t at
+position ``q_start + t`` of the keys (a block of a longer query
+sequence: one model rank's rows of a sequence cut over ranks); the
+masks and the causal tile skipping read positions.
 
 The wrapper takes the plain PyTorch version only for a CPU tensor; on a
 CUDA tensor it launches the kernel or raises.
@@ -37,7 +40,8 @@ def wgmma_bk(head_dim: int) -> int:
 
 
 def tile_classes(Sq: int, Sk: int, bq: int, bk: int, causal: bool,
-                 window: int | None) -> list[tuple[int, int, int, int]]:
+                 window: int | None,
+                 q_start: int = 0) -> list[tuple[int, int, int, int]]:
     """Per q tile of ``bq`` rows, ``(j_lo, j_hi, i_lo, i_hi)``: the kernel
     visits kv tiles ``j_lo <= j < j_hi`` of ``bk`` keys, and the interior
     ones ``i_lo <= j < i_hi`` hold only live scores, so they take no
@@ -46,8 +50,9 @@ def tile_classes(Sq: int, Sk: int, bq: int, bk: int, causal: bool,
     (``window`` set and ``t >= Sk + window - 1``) visits every kv tile.
     Mirrors ``kv_range`` in ``csrc/flash_attention.cu`` line for line."""
     out = []
-    for q0 in range(0, Sq, bq):
-        q_last = min(q0 + bq, Sq) - 1
+    for t0 in range(0, Sq, bq):
+        q_last = q_start + min(t0 + bq, Sq) - 1
+        q0 = q_start + t0
         k_lo, k_hi = 0, Sk
         dead_row = window is not None and (window < 1
                                            or q_last >= Sk + window - 1)
@@ -73,14 +78,15 @@ def tile_classes(Sq: int, Sk: int, bq: int, bk: int, causal: bool,
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None,
-                          softcap=None, scale=None, q_rows=None):
+                          softcap=None, scale=None, q_rows=None,
+                          q_start=0):
     """Plain version of both kernels (the reference math)."""
     if q_rows is None:
         return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap, scale=scale)
+                             softcap=softcap, scale=scale, q_start=q_start)
     return gathered_attention_ref(q, k, v, q_rows, causal=causal,
                                   window=window, softcap=softcap,
-                                  scale=scale)
+                                  scale=scale, q_start=q_start)
 
 
 def _check(q, k, v, q_rows, softcap) -> None:
@@ -108,14 +114,18 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          softcap: float | None = None,
                          scale: float | None = None,
-                         q_rows: torch.Tensor | None = None) -> torch.Tensor:
+                         q_rows: torch.Tensor | None = None,
+                         q_start: int = 0) -> torch.Tensor:
     """q [B,Sq,H,D], k/v [B,Sk,K,D] -> [B,Sq,H,D] in q's dtype; with
-    ``q_rows`` [B, Sq] the gather prologue."""
+    ``q_rows`` [B, Sq] the gather prologue; q row t at position
+    ``q_start + t``."""
     _check(q, k, v, q_rows, softcap)
+    if q_start < 0:
+        raise ValueError(f"flash_attention: q_start {q_start} < 0")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
-                                     q_rows=q_rows)
+                                     q_rows=q_rows, q_start=q_start)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:
@@ -132,7 +142,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     tail = (B, Sq, Sk, H, K, D, scale, cap, int(causal),
-            int(window is not None), int(window or 0),
+            int(window is not None), int(window or 0), int(q_start),
             torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         lib = cuda.library()

@@ -8,9 +8,12 @@
 
 For a cell it builds the port's own step for one device of the mesh
 (its coordinates are the origin): the sharded fsdp train step
-(``train.step.sharded_train_step``) or the explicit-DP step, the mesh
-decode step (``serve.step.mesh_decode_step``), or the prefill forward
-over sharded parameters; the train state, the parameters, the cache and
+(``train.step.sharded_train_step``, the sequence split over ``model``)
+or the explicit-DP step, the mesh decode step
+(``serve.step.mesh_decode_step``, parameter blocks cut over ``model``
+left where they are stored), or the prefill forward over sharded
+parameters with the sequence split (``shard.SeqSplit``: each model rank
+its S/n rows); the train state, the parameters, the cache and
 the inputs are this device's blocks (``train.sharding``'s specs) as
 ``meta`` tensors, the batch its rows (``B / n_data``; a long-context
 decode every row).  The mesh is a ``launch.mesh.MeshLayout``: its groups
@@ -160,6 +163,7 @@ def build_cell(cfg, kind: str, ins: dict, mesh, *, train_overrides=None,
     if kind == "prefill":
         pspec = sharding.param_specs(params, cfg, mesh)
         plans = shard.plans_for(pspec, mesh)
+        split = shard.seq_split(mesh)
         blocks = shard.cut_tree(params, pspec, mesh)
         batch = {k: _rows(v, n_data) for k, v in ins.items()}
 
@@ -167,7 +171,7 @@ def build_cell(cfg, kind: str, ins: dict, mesh, *, train_overrides=None,
         def run():
             kw = {k: v for k, v in batch.items() if k != "tokens"}
             return M.forward(shard.sharded_model(cfg, blocks, plans), cfg,
-                             batch["tokens"], **kw)
+                             batch["tokens"], split=split, **kw)
         mem = {"param_bytes": _nbytes(blocks), "opt_bytes": 0,
                "input_bytes": _nbytes(batch)}
         return run, (blocks, batch), mem
@@ -191,7 +195,7 @@ def collectives(log) -> dict:
     """Wire bytes by kind (``mpix-`` calls folded into their kind),
     ``count`` and ``total``, from a ``train.comm`` record."""
     out = {k: 0.0 for k in _KINDS}
-    for kind, _, _, wire in log:
+    for kind, _, _, wire, *_ in log:
         out[kind.removeprefix("mpix-")] += wire
     out["count"] = len(log)
     out["total"] = sum(out[k] for k in _KINDS)

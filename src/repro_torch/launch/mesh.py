@@ -77,7 +77,9 @@ class MeshLayout:
     def group(self, axes):
         from repro_torch.train.comm import AxesGroup
         axes = self._axes(axes)
-        return AxesGroup(axes, self.axis_size(axes), self.axis_index(axes),
+        # the record names a group by its axes of more than one rank
+        return AxesGroup(tuple(a for a in axes if self.shape[a] > 1),
+                         self.axis_size(axes), self.axis_index(axes),
                          self.log)
 
     def topology(self, axes) -> Topology:
@@ -134,6 +136,8 @@ class Mesh(MeshLayout):
             g = dist.group.WORLD
         else:
             g = self._new_groups(axes)
+        from repro_torch.train.comm import name_group
+        name_group(g, tuple(a for a in axes if self.shape[a] > 1))
         self._groups[axes] = g
         return g
 
@@ -185,10 +189,14 @@ def ensure_process_group(device: torch.device) -> bool:
     return True
 
 
-def make_local_mesh(device: torch.device) -> Mesh:
-    """Every rank of the group on the data axis: ``(n, 1)`` over
-    ``("data", "model")``."""
-    return Mesh((dist.get_world_size(), 1), ("data", "model"),
+def make_local_mesh(device: torch.device, model: int = 1) -> Mesh:
+    """The group's ranks as ``(n / model, model)`` over ``("data",
+    "model")`` (``model`` 1: every rank on the data axis)."""
+    n = dist.get_world_size()
+    if model < 1 or n % model:
+        raise ValueError(f"a model axis of {model} does not divide the "
+                         f"group's {n} ranks")
+    return Mesh((n // model, model), ("data", "model"),
                 device_type=device.type)
 
 

@@ -125,8 +125,10 @@ MESH_RANKS = {"single": 256, "multi": 512}
 def mesh_generate(args, cfg, device: torch.device):
     """``generate`` on a mesh of ranks through ``mesh_decode_step``:
     ``--mesh local`` is every rank of the group on the data axis, (n, 1)
-    over ``("data", "model")``; ``single`` / ``multi`` the production
-    meshes (256 / 512 ranks).  Every rank draws the same weights and
+    over ``("data", "model")``, or with ``--model-axis M`` (n / M, M),
+    where each parameter block cut over ``model`` stays where it is
+    stored; ``single`` / ``multi`` the production meshes (256 / 512
+    ranks).  Every rank draws the same weights and
     prompts, stores its share (``train.shard``) and decodes its own rows
     of the batch.  Returns this rank's tokens."""
     import torch.distributed as dist
@@ -147,7 +149,8 @@ def mesh_generate(args, cfg, device: torch.device):
                 f"position of {'2 x 16 x 16' if need == 512 else '16 x 16'}"
                 f"); the group has {world}. Start {need} ranks under "
                 f"torchrun, or use --mesh local")
-        mesh = (make_local_mesh(device) if args.mesh == "local" else
+        mesh = (make_local_mesh(device, args.model_axis)
+                if args.mesh == "local" else
                 make_production_mesh(multi_pod=args.mesh == "multi",
                                      device_type=device.type))
         d_axes = data_axes(mesh)
@@ -524,6 +527,9 @@ def main(argv=None):
                          "production meshes (256 / 512 ranks). Each rank "
                          "stores its share of the weights and cache and "
                          "decodes its rows (--batch must divide)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="--mesh local: ranks on the model axis (their "
+                         "parameter blocks stay where they are stored)")
     args = ap.parse_args(argv)
 
     # ---- argument validation (fail loudly, never deep in the loop) ----

@@ -20,7 +20,9 @@ included.
 
 ``--mesh local`` puts every rank of the group on the data axis: the
 group of ``torchrun`` (its environment), or without one a group of this
-process alone (NCCL on the card, gloo on the CPU).  Each rank reads its
+process alone (NCCL on the card, gloo on the CPU); ``--model-axis M``
+puts M of them on the ``model`` axis, where the fsdp step splits the
+sequence (each model rank runs its ``--seq`` / M rows).  Each rank reads its
 own rows of the global batch (``--batch`` must divide by the rank
 count).  ``--dp-mode explicit`` syncs the gradients through
 ``mpix_allreduce`` (``--dp-algorithm``, ``--grad-buckets``,
@@ -75,7 +77,7 @@ def build(args, device: torch.device):
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     if args.mesh == "local":
-        mesh = make_local_mesh(device)
+        mesh = make_local_mesh(device, args.model_axis)
     else:
         mesh = make_production_mesh(multi_pod=args.mesh == "multi",
                                     device_type=device.type)
@@ -176,6 +178,9 @@ def _parser():
                          "kernel's plain version)")
     ap.add_argument("--mesh", default="local",
                     choices=["local", "single", "multi"])
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="--mesh local: ranks on the model axis (the "
+                         "sequence split of the fsdp step)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

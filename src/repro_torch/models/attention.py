@@ -9,6 +9,13 @@ and values from the encoder output, no rope, every key live) and
 non-causal self-attention (whisper's encoder) always run the plain
 core.  With M-RoPE (qwen2-vl) ``positions`` is [3, B, S] (time, height,
 width streams); the prefill masks with the time stream.
+
+Under a sequence split (``split``, ``train.shard.SeqSplit``) ``x`` and
+``positions`` are this model rank's rows: k and v are all-gathered over
+the model axis along the sequence (a reduce-scatter in the backward) and
+the rank attends its query rows at their global positions (the flash
+kernel's ``q_start``).  Every product goes through
+``models.common.linear`` (a column block on a mesh's decode).
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ from torch import nn
 
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.models.common import (apply_mrope, apply_rope, attn_mask,
-                                       dense_init_, rmsnorm, softcap)
+                                       dense_init_, linear, rmsnorm,
+                                       softcap)
 from repro_torch.models.config import AttnConfig
 
 NEG_INF = -1e30
@@ -57,9 +65,9 @@ def _project_qkv(p: Attention, cfg: AttnConfig, x, kv_src=None, *,
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kv_in = x if kv_src is None else kv_src
     Sk = kv_in.shape[1]
-    q = (x @ p.wq).reshape(B, S, H, D)
-    k = (kv_in @ p.wk).reshape(B, Sk, K, D)
-    v = (kv_in @ p.wv).reshape(B, Sk, K, D)
+    q = linear(x, p.wq).reshape(B, S, H, D)
+    k = linear(kv_in, p.wk).reshape(B, Sk, K, D)
+    v = linear(kv_in, p.wv).reshape(B, Sk, K, D)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, eps)
         k = rmsnorm(k, p.k_norm, eps)
@@ -127,30 +135,35 @@ def _chunked_core(q, k, v, mpos, *, causal, window, cap, scale=None,
 
 
 def forward(p: Attention, cfg: AttnConfig, x, *, positions, window=None,
-            kv_src=None, eps=1e-6, use_kernel=False):
+            kv_src=None, eps=1e-6, use_kernel=False, split=None):
     """Full-sequence attention (prefill); with ``cfg.cross`` the keys
-    and values come from ``kv_src`` [B, Sk, d]."""
+    and values come from ``kv_src`` [B, Sk, d].  ``split``: ``x`` holds
+    this model rank's rows of the sequence (see the module docstring)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_src, positions=positions, eps=eps)
     win = window if window is not None else cfg.window
     # M-RoPE carries 3 position streams; masking uses the time stream
     mpos = positions[0] if cfg.mrope_sections is not None else positions
+    kpos, q_start = mpos, 0
+    if split is not None and not cfg.cross:
+        k, v = split.gather(k), split.gather(v)
+        kpos, q_start = split.key_pos, split.start(S)
+    Sk = k.shape[1]
     if cfg.cross:
-        mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool,
-                          device=x.device)
+        mask = torch.ones((B, S, Sk), dtype=torch.bool, device=x.device)
         out = core_attention(q, k, v, mask, cap=cfg.softcap)
     elif use_kernel and cfg.causal:
         out = attn_ops.flash_attention(q, k, v, causal=True, window=win,
-                                       softcap=cfg.softcap)
-    elif S > CHUNK_THRESHOLD or B * cfg.n_heads * S * S > CHUNK_SCORES:
+                                       softcap=cfg.softcap, q_start=q_start)
+    elif S > CHUNK_THRESHOLD or B * cfg.n_heads * S * Sk > CHUNK_SCORES:
         out = _chunked_core(q, k, v, mpos, causal=cfg.causal,
                             window=win, cap=cfg.softcap,
-                            chunk=_chunk_rows(B, cfg.n_heads, S))
+                            chunk=_chunk_rows(B, cfg.n_heads, Sk))
     else:
-        mask = attn_mask(mpos, mpos, causal=cfg.causal, window=win)
+        mask = attn_mask(mpos, kpos, causal=cfg.causal, window=win)
         mask = torch.broadcast_to(mask, (B,) + mask.shape[-2:])
         out = core_attention(q, k, v, mask, cap=cfg.softcap)
-    return out.reshape(B, S, -1) @ p.wo
+    return linear(out.reshape(B, S, -1), p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -209,5 +222,5 @@ def decode_step(p: Attention, cfg: AttnConfig, x, cache: dict, *,
         if cfg.softcap is not None:
             logits = softcap(logits, cfg.softcap)
         out = seq.attend(logits, mask, vv)
-    y = out.reshape(B, 1, -1) @ p.wo
+    y = linear(out.reshape(B, 1, -1), p.wo)
     return y, {"k": ck, "v": cv, "len": t + 1}

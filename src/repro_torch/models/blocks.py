@@ -7,6 +7,11 @@ Mixers ``attn``, ``mla``, ``rwkv``, ``mamba``; feed-forwards ``mlp``,
 attends to ``cross_src``, the encoder output.  The MoE prefill takes the
 dense dispatch and decode the capacity dispatch (factor 2), as in the
 reference.
+
+Under a sequence split (``split``, ``train.shard.SeqSplit``) a block
+runs this model rank's rows: each mixer gathers what it needs over the
+model axis (see each mixer), the norms, projections and feed-forwards
+run on the rank's rows alone.
 """
 from __future__ import annotations
 
@@ -101,21 +106,22 @@ def _norm(cfg: ModelConfig, x, w):
 
 
 def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache=None,
-        moe_dispatch=None):
+        moe_dispatch=None, split=None):
     """The feed-forward sublayer; with ``cache`` (decode) the channel
     mix reads and updates its token-shift carry ``cache["cmix"]`` and the
     MoE takes the capacity dispatch.  An MoE takes ``moe_dispatch(p.moe,
     cfg.moe, h)`` when given (the capacity or expert-parallel dispatch of
     training; in decode, the capacity dispatch over a mesh's rows), else
     the dense dispatch (full sequence) or the capacity dispatch
-    (decode)."""
+    (decode).  Under ``split`` a dispatch that takes ``split`` gets it."""
     if spec.ff == "none":
         return x
     h = _norm(cfg, x, p.norm_ff)
     if spec.ff == "mlp":
         h = mlp.forward(p.mlp, h, cfg.mlp_act)
     elif spec.ff == "moe" and moe_dispatch is not None:
-        h = moe_dispatch(p.moe, cfg.moe, h)
+        h = (moe_dispatch(p.moe, cfg.moe, h) if split is None else
+             moe_dispatch(p.moe, cfg.moe, h, split=split))
     elif spec.ff == "moe" and cache is None:
         h = moe.forward(p.moe, cfg.moe, h, cfg.mlp_act)
     elif spec.ff == "moe":
@@ -124,7 +130,7 @@ def _ff(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cache=None,
         h = moe.forward_dropless(p.moe, cfg.moe, h, cfg.mlp_act,
                                  capacity_factor=2.0)
     elif cache is None:
-        h = rwkv.channel_mix(p.cmix, h)
+        h = rwkv.channel_mix(p.cmix, h, split=split)
     else:
         h, cache["cmix"] = rwkv.decode_channel_mix(p.cmix, h, cache["cmix"])
     if cfg.post_block_norm:
@@ -148,28 +154,31 @@ def _cross(p: Block, spec: BlockSpec, cfg: ModelConfig, x, cross_src):
 
 
 def forward(p: Block, spec: BlockSpec, cfg: ModelConfig, x, *, positions,
-            cross_src=None, use_kernel=False, moe_dispatch=None):
-    """Full-sequence block; x [B, S, d].  ``moe_dispatch`` replaces an
+            cross_src=None, use_kernel=False, moe_dispatch=None,
+            split=None):
+    """Full-sequence block; x [B, S, d] (under ``split`` this model
+    rank's rows, ``positions`` theirs).  ``moe_dispatch`` replaces an
     MoE layer's dense dispatch (see ``_ff``)."""
     h = _norm(cfg, x, p.norm_mixer)
     if spec.mixer == "attn":
         h = attention.forward(p.attn, cfg.attn, h, positions=positions,
                               window=spec.window, eps=cfg.norm_eps,
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, split=split)
     elif spec.mixer == "mla":
         h = mla.forward(p.mla, cfg.mla, h, positions=positions,
-                        eps=cfg.norm_eps, use_kernel=use_kernel)
+                        eps=cfg.norm_eps, use_kernel=use_kernel, split=split)
     elif spec.mixer == "rwkv":
-        h = rwkv.time_mix(p.rwkv, cfg.rwkv, h, use_kernel=use_kernel)
+        h = rwkv.time_mix(p.rwkv, cfg.rwkv, h, use_kernel=use_kernel,
+                          split=split)
     elif spec.mixer == "mamba":
         h = mamba.forward(p.mamba, cfg.mamba, h, eps=cfg.norm_eps,
-                          use_kernel=use_kernel)
+                          use_kernel=use_kernel, split=split)
     else:
         h = torch.zeros_like(h)
     if cfg.post_block_norm:
         h = _norm(cfg, h, p.norm_mixer_post)
     return _ff(p, spec, cfg, _cross(p, spec, cfg, x + h, cross_src),
-               moe_dispatch=moe_dispatch)
+               moe_dispatch=moe_dispatch, split=split)
 
 
 # ---------------------------------------------------------------------------

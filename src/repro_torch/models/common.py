@@ -89,6 +89,36 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
+# parameters held as blocks (decode on a mesh: ``train.shard.Resident``)
+# ---------------------------------------------------------------------------
+
+
+def _resident(w) -> bool:
+    return getattr(w, "resident", False)
+
+
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w``.  A weight held where it is stored as a column block
+    (``train.shard.Resident``, decode on a mesh) multiplies its block and
+    gathers the product's output columns: the one rule every block
+    function's products follow."""
+    return w.matmul(x) if _resident(w) else x @ w
+
+
+def lookup(table, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (rows of an embedding); a table held as a block of
+    rows looks up its rows and sums the group's (see ``Resident``)."""
+    return table.lookup(idx) if _resident(table) else table[idx]
+
+
+def channelwise(fn, w, *xs):
+    """``fn(w, *xs)`` for an op elementwise along the last dim of ``w``
+    and of every ``x``; a ``w`` held as a block of that dim runs ``fn`` on
+    its channels and gathers the outputs' channels."""
+    return w.channelwise(fn, *xs) if _resident(w) else fn(w, *xs)
+
+
+# ---------------------------------------------------------------------------
 # masks
 # ---------------------------------------------------------------------------
 

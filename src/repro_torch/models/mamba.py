@@ -17,6 +17,15 @@ the scan B and C in the activation dtype; the plain path and the decode
 step keep all three in f32, so even in f32 the two paths differ by dt's
 bf16 rounding, as in the reference.  The decode state keeps the conv
 window in bf16 whatever the weights' dtype, as the reference does.
+
+Under a sequence split (``split``) the layer runs on the model group's
+gathered rows and keeps this rank's (exact: the conv window and the
+scan see the whole sequence; the state is not carried from rank to
+rank).  Decode on a mesh: the products are column blocks
+(``models.common.linear``; ``w_in``'s fused x|z output is gathered
+whole before it is split), the depthwise conv runs on ``conv_w``'s
+channels and the state update on ``A_log``'s block of the state dim
+(``channelwise``), with the state itself gathered for the step.
 """
 from __future__ import annotations
 
@@ -28,7 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
-from repro_torch.models.common import dense_init_, rmsnorm
+from repro_torch.models.common import (channelwise, dense_init_, linear,
+                                       rmsnorm)
 from repro_torch.models.config import MambaConfig
 from repro_torch.models.mlp import silu
 
@@ -116,17 +126,10 @@ def _scan_inputs(p: Mamba, cfg: MambaConfig, proj, eps):
     dt = rmsnorm(proj[..., :R], p.dt_norm, eps)
     Bc = rmsnorm(proj[..., R: R + S], p.b_norm, eps)
     Cc = rmsnorm(proj[..., R + S:], p.c_norm, eps)
-    dt = softplus((dt @ p.w_dt).float() + p.dt_bias)
+    dt = softplus(linear(dt, p.w_dt).float() + p.dt_bias)
     return dt, Bc, Cc
 
 
-def _ssm_inputs(p: Mamba, cfg: MambaConfig, xc, eps=1e-6):
-    """dA [..., Di, S], dBx [..., Di, S] and C [..., S], all f32."""
-    dt, Bc, Cc = _scan_inputs(p, cfg, xc @ p.w_x, eps)
-    A = -torch.exp(p.A_log)
-    dA = torch.exp(dt[..., None] * A)
-    dBx = (dt * xc.float())[..., None] * Bc.float()[..., None, :]
-    return dA, dBx, Cc.float()
 
 
 def _plain_scan(xc, dt, Bc, Cc, A, D):
@@ -145,11 +148,16 @@ def _plain_scan(xc, dt, Bc, Cc, A, D):
     return torch.cat(ys, dim=1)
 
 
-def forward(p: Mamba, cfg: MambaConfig, x, *, eps=1e-6, use_kernel=False):
-    """x: [B, T, d] -> [B, T, d] (full sequence)."""
-    xc, z = (x @ p.w_in).chunk(2, dim=-1)
+def forward(p: Mamba, cfg: MambaConfig, x, *, eps=1e-6, use_kernel=False,
+            split=None):
+    """x: [B, T, d] -> [B, T, d] (full sequence); ``split``: x holds this
+    model rank's rows (module docstring)."""
+    if split is not None:
+        return split.own(lambda xs: forward(p, cfg, xs, eps=eps,
+                                            use_kernel=use_kernel), x)
+    xc, z = linear(x, p.w_in).chunk(2, dim=-1)
     xc, _ = _conv(xc, p.conv_w, p.conv_b)
-    dt, Bc, Cc = _scan_inputs(p, cfg, xc @ p.w_x, eps)
+    dt, Bc, Cc = _scan_inputs(p, cfg, linear(xc, p.w_x), eps)
     A = -torch.exp(p.A_log)
     if use_kernel:
         # the hand-written selective scan: the [Di, S] state and the
@@ -159,7 +167,7 @@ def forward(p: Mamba, cfg: MambaConfig, x, *, eps=1e-6, use_kernel=False):
     else:
         y = _plain_scan(xc, dt, Bc.float(), Cc.float(), A, p.D)
     y = (y * silu(z.float())).to(x.dtype)
-    return y @ p.w_out
+    return linear(y, p.w_out)
 
 
 # ---------------------------------------------------------------------------
@@ -180,12 +188,20 @@ def init_state(cfg: MambaConfig, batch: int, d_model: int, *,
 
 def decode_step(p: Mamba, cfg: MambaConfig, x, state: dict, eps=1e-6):
     """x: [B, 1, d]; one plain recurrence step on the O(1) state."""
-    xc, z = (x @ p.w_in).chunk(2, dim=-1)
-    xc, conv_carry = _conv(xc, p.conv_w, p.conv_b,
-                           carry=state["conv"].to(xc.dtype))
-    dA, dBx, C = _ssm_inputs(p, cfg, xc, eps)
-    h = dA[:, 0] * state["h"] + dBx[:, 0]
-    y = torch.einsum("bds,bs->bd", h, C[:, 0])[:, None]
+    xc, z = linear(x, p.w_in).chunk(2, dim=-1)
+    xc, conv_carry = channelwise(
+        lambda w, xc, carry, b: _conv(xc, w, b, carry=carry), p.conv_w, xc,
+        state["conv"].to(xc.dtype), p.conv_b)
+    dt, Bc, Cc = _scan_inputs(p, cfg, linear(xc, p.w_x), eps)
+    dt, xf = dt[:, 0, :, None], xc.float()[:, 0, :, None]
+
+    def update(A_log, h, Bs):
+        # dA h + dt x B on a block of the state dim
+        return torch.exp(dt * -torch.exp(A_log)) * h + (dt * xf) * Bs
+
+    h = channelwise(update, p.A_log, state["h"], Bc.float()[:, 0, None, :])
+    y = torch.einsum("bds,bs->bd", h, Cc.float()[:, 0])[:, None]
     y = y + xc.float() * p.D
     y = (y * silu(z.float())).to(x.dtype)
-    return y @ p.w_out, {"h": h, "conv": conv_carry.to(torch.bfloat16)}
+    return linear(y, p.w_out), {"h": h,
+                                "conv": conv_carry.to(torch.bfloat16)}

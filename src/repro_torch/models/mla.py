@@ -18,6 +18,12 @@ where the [B, H, S, S] f32 scores would pass ``attention.CHUNK_SCORES``
 elements (128 heads at 8192 tokens: 34 GB); rows are independent, so
 chunking changes memory, not results.  Both cores return the heads
 [B, S, H, v_head_dim]; ``forward`` and ``decode_step`` apply ``wo``.
+
+Under a sequence split (``split``) the rank projects its own rows, the
+latents ``ckv`` and ``k_rope`` are all-gathered over the model axis
+along the sequence (a reduce-scatter in the backward), every rank
+up-projects the whole sequence's latents and attends its query rows at
+their global positions.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ from torch import nn
 
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.models import attention
-from repro_torch.models.common import apply_rope, dense_init_, rmsnorm
+from repro_torch.models.common import (apply_rope, dense_init_, linear,
+                                       rmsnorm)
 from repro_torch.models.config import MLAConfig
 
 
@@ -68,13 +75,13 @@ def _latents(p: MLA, cfg: MLAConfig, x, positions, eps):
     k_rope [B,S,1,rope]), rope applied."""
     B, S, _ = x.shape
     H = cfg.n_heads
-    q = rmsnorm(x @ p.w_dq, p.q_norm, eps) @ p.w_uq
+    q = linear(rmsnorm(linear(x, p.w_dq), p.q_norm, eps), p.w_uq)
     q = q.reshape(B, S, H, cfg.qk_head_dim)
     q_nope, q_rope = torch.split(
         q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    ckv = rmsnorm(x @ p.w_dkv, p.kv_norm, eps)
-    k_rope = apply_rope((x @ p.w_kr)[:, :, None, :], positions,
+    ckv = rmsnorm(linear(x, p.w_dkv), p.kv_norm, eps)
+    k_rope = apply_rope(linear(x, p.w_kr)[:, :, None, :], positions,
                         cfg.rope_theta)
     return q_nope, q_rope, ckv, k_rope
 
@@ -83,8 +90,8 @@ def _up(p: MLA, cfg: MLAConfig, ckv):
     """The latent up-projected: (k_nope [B,Sk,H,nope], v [B,Sk,H,v])."""
     B, Sk, _ = ckv.shape
     H = cfg.n_heads
-    return ((ckv @ p.w_uk).reshape(B, Sk, H, cfg.qk_nope_head_dim),
-            (ckv @ p.w_uv).reshape(B, Sk, H, cfg.v_head_dim))
+    return (linear(ckv, p.w_uk).reshape(B, Sk, H, cfg.qk_nope_head_dim),
+            linear(ckv, p.w_uv).reshape(B, Sk, H, cfg.v_head_dim))
 
 
 def _attend(p: MLA, cfg: MLAConfig, q_nope, q_rope, ckv, k_rope, mask,
@@ -103,9 +110,12 @@ def _attend(p: MLA, cfg: MLAConfig, q_nope, q_rope, ckv, k_rope, mask,
     return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
 
 
-def _kernel_core(p: MLA, cfg: MLAConfig, q_nope, q_rope, ckv, k_rope):
-    """The flash kernel on up-projected heads: -> [B, S, H, v_head_dim]."""
-    B, S, H, _ = q_nope.shape
+def _kernel_core(p: MLA, cfg: MLAConfig, q_nope, q_rope, ckv, k_rope,
+                 q_start=0):
+    """The flash kernel on up-projected heads: -> [B, Sq, H, v_head_dim]
+    (query row t at position ``q_start + t`` of the latents' keys)."""
+    B, Sq, H, _ = q_nope.shape
+    S = ckv.shape[1]
     k_nope, v = _up(p, cfg, ckv)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_head_dim)],
@@ -113,38 +123,47 @@ def _kernel_core(p: MLA, cfg: MLAConfig, q_nope, q_rope, ckv, k_rope):
     vp = torch.cat([v, v.new_zeros((B, S, H, q.shape[-1] - v.shape[-1]))],
                    -1)
     out = attn_ops.flash_attention(q, k, vp, True, None, None,
-                                   cfg.qk_head_dim ** -0.5)
+                                   cfg.qk_head_dim ** -0.5, q_start=q_start)
     return out[..., :cfg.v_head_dim]
 
 
-def _plain_core(p: MLA, cfg: MLAConfig, q_nope, q_rope, ckv, k_rope):
+def _plain_core(p: MLA, cfg: MLAConfig, q_nope, q_rope, ckv, k_rope,
+                q_start=0):
     """The plain ``_attend`` under the causal mask, q in row chunks where
-    the [B, H, S, S] f32 scores would pass ``attention.CHUNK_SCORES``
-    elements: -> [B, S, H, v_head_dim]."""
-    B, S, H, _ = q_nope.shape
+    the [B, H, Sq, S] f32 scores would pass ``attention.CHUNK_SCORES``
+    elements: -> [B, Sq, H, v_head_dim]."""
+    B, Sq, H, _ = q_nope.shape
+    S = ckv.shape[1]
     kpos = torch.arange(S, device=q_nope.device)
-    if S <= attention.CHUNK_THRESHOLD and B * H * S * S <= \
+    qpos = kpos[q_start:q_start + Sq]
+    if Sq <= attention.CHUNK_THRESHOLD and B * H * Sq * S <= \
             attention.CHUNK_SCORES:
-        mask = (kpos[None, :] <= kpos[:, None]).expand(B, S, S)
+        mask = (kpos[None, :] <= qpos[:, None]).expand(B, Sq, S)
         return _attend(p, cfg, q_nope, q_rope, ckv, k_rope, mask)
     c = attention._chunk_rows(B, H, S)
     kv = _up(p, cfg, ckv)
     outs = []
-    for q0 in range(0, S, c):
-        qpos = kpos[q0:q0 + c]
-        mask = (kpos[None, :] <= qpos[:, None]).expand(B, len(qpos), S)
+    for q0 in range(0, Sq, c):
+        qc = qpos[q0:q0 + c]
+        mask = (kpos[None, :] <= qc[:, None]).expand(B, len(qc), S)
         outs.append(_attend(p, cfg, q_nope[:, q0:q0 + c],
                             q_rope[:, q0:q0 + c], ckv, k_rope, mask, kv=kv))
     return torch.cat(outs, dim=1)
 
 
 def forward(p: MLA, cfg: MLAConfig, x, *, positions, eps=1e-6,
-            use_kernel=False):
-    """Full-sequence causal MLA (prefill): x [B, S, d] -> [B, S, d]."""
+            use_kernel=False, split=None):
+    """Full-sequence causal MLA (prefill): x [B, S, d] -> [B, S, d];
+    ``split``: ``x`` holds this model rank's rows (module docstring)."""
     B, S, _ = x.shape
-    lat = _latents(p, cfg, x, positions, eps)
+    q_nope, q_rope, ckv, k_rope = _latents(p, cfg, x, positions, eps)
+    q_start = 0
+    if split is not None:
+        ckv, k_rope = split.gather(ckv), split.gather(k_rope)
+        q_start = split.start(S)
     core = _kernel_core if use_kernel else _plain_core
-    return core(p, cfg, *lat).reshape(B, S, -1) @ p.wo
+    out = core(p, cfg, q_nope, q_rope, ckv, k_rope, q_start)
+    return linear(out.reshape(B, S, -1), p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -189,4 +208,5 @@ def decode_step(p: MLA, cfg: MLAConfig, x, cache: dict, *, eps=1e-6,
                   + torch.einsum("bqhd,bkod->bhqk", q_rope.float(),
                                  r2.float())) * cfg.qk_head_dim ** -0.5
         y = seq.attend(logits, mask, v)
-    return y.reshape(B, 1, -1) @ p.wo, {"ckv": c2, "kr": r2, "len": t + 1}
+    return linear(y.reshape(B, 1, -1), p.wo), {"ckv": c2, "kr": r2,
+                                               "len": t + 1}

@@ -6,7 +6,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.models.common import dense_init_
+from repro_torch.models.common import dense_init_, linear
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -53,5 +53,6 @@ def init(d_model: int, d_ff: int, gated: bool = True, *,
 
 def forward(p: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     if hasattr(p, "w_gate"):
-        return (ACT[act](x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
-    return ACT[act](x @ p.w_up) @ p.w_down
+        return linear(ACT[act](linear(x, p.w_gate)) * linear(x, p.w_up),
+                      p.w_down)
+    return linear(ACT[act](linear(x, p.w_up)), p.w_down)

@@ -10,6 +10,14 @@ roundings follow the reference: the gemma embed scale ``sqrt(d_model)``
 is rounded to the activation dtype before the multiply, every norm casts
 back to its input dtype, and the final softcap runs on the logits in
 their own dtype (bf16 with bf16 weights).
+
+``split`` (``train.shard.SeqSplit``, passed down by the caller, never
+read from a global) runs the sequence split over the model axis: each
+model rank embeds and runs its contiguous S/n rows (a VLM's vision
+prefix is placed first, then cut; M-RoPE positions are computed for the
+whole sequence, then cut) and returns their logits.  A stack whose
+length does not divide the model axis (whisper's 1500-frame encoder)
+runs whole on every model rank.
 """
 from __future__ import annotations
 
@@ -20,7 +28,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
-from repro_torch.models.common import dense_init_, rmsnorm, softcap
+from repro_torch.models.common import (dense_init_, linear, lookup, rmsnorm,
+                                       softcap)
 from repro_torch.models.config import BlockSpec, ModelConfig
 
 _ENCODER_SPEC = BlockSpec(mixer="attn", ff="mlp")
@@ -122,24 +131,39 @@ def positions_for(cfg: ModelConfig, S: int, device=None):
     return pos
 
 
-def encode(p: Model, cfg: ModelConfig, frames):
+def _split_for(split, S: int):
+    """``split`` bound to a sequence of S (the mask positions of its
+    keys), or None where S does not divide the model axis."""
+    if split is None or not split.applies(S):
+        return None
+    return split
+
+
+def encode(p: Model, cfg: ModelConfig, frames, split=None):
     """Whisper's encoder on precomputed frames [B, n_frames, d_enc]
     (the conv front end is stubbed, as in the reference): non-causal
-    attention + MLP blocks, then ``encoder.final_norm``."""
+    attention + MLP blocks, then ``encoder.final_norm``.  Under a
+    ``split`` that the frames divide each model rank runs its frames and
+    the output is gathered; else the stack runs whole."""
     ecfg = encoder_config(cfg)
+    S = frames.shape[1]
+    pos = torch.arange(S, dtype=torch.int32, device=frames.device)[None, :]
+    split = _split_for(split, S)
     x = frames
-    pos = torch.arange(frames.shape[1], dtype=torch.int32,
-                       device=frames.device)[None, :]
+    if split is not None:
+        split = dataclasses.replace(split, key_pos=pos)
+        x, pos = split.cut(frames), split.cut(pos, -1)
     for layer in p.encoder.layers:
         x = blocks.forward(held(layer), _ENCODER_SPEC, ecfg, x,
-                           positions=pos)
-    return rmsnorm(x, p.encoder.final_norm, cfg.norm_eps)
+                           positions=pos, split=split)
+    x = rmsnorm(x, p.encoder.final_norm, cfg.norm_eps)
+    return x if split is None else split.gather(x)
 
 
 def embed_tokens(p: Model, cfg: ModelConfig, tokens, vision_embeds=None):
     """Token embeddings; for a VLM the leading ``vision_embeds.shape[1]``
     rows are replaced by the precomputed patch embeddings."""
-    x = p.embed[tokens]
+    x = lookup(p.embed, tokens)
     if cfg.gemma_norm:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.vision_prefix and vision_embeds is not None:
@@ -151,7 +175,7 @@ def embed_tokens(p: Model, cfg: ModelConfig, tokens, vision_embeds=None):
 def _logits(p: Model, cfg: ModelConfig, x):
     x = rmsnorm(x, p.final_norm, cfg.norm_eps, gemma_style=cfg.gemma_norm)
     head = p.embed.T if cfg.tie_embeddings else p.lm_head
-    logits = x @ head
+    logits = linear(x, head)
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
     return logits
@@ -159,7 +183,7 @@ def _logits(p: Model, cfg: ModelConfig, x):
 
 def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
             vision_embeds=None, encoder_frames=None, use_kernel=False,
-            moe_dispatch=None, remat=False):
+            moe_dispatch=None, remat=False, split=None):
     """tokens [B, S] -> logits [B, S, V]; ``p`` is a ``Model`` or a view
     over sharded storage (``train.shard.sharded_model``).  An
     encoder-decoder takes
@@ -170,9 +194,11 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
     time, as the reference checkpoints its scan body with nothing
     saveable: each period's forward runs again (kernels included) when
     its gradient is needed; the prefix and suffix layers are not
-    checkpointed."""
+    checkpointed.  ``split``: the sequence split over the model axis
+    (module docstring): the logits are this rank's rows, [B, S/n, V];
+    a remat region's recompute reuses its collectives' results over the
+    model axis (``split.remat_contexts``)."""
     B, S = tokens.shape
-    x = embed_tokens(p, cfg, tokens, vision_embeds)
     if positions is None:
         positions = positions_for(cfg, S, tokens.device)
     cross_src = None
@@ -180,9 +206,21 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
         if encoder_frames is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
                              f"encoder_frames")
-        cross_src = encode(p, cfg, encoder_frames)
+        cross_src = encode(p, cfg, encoder_frames, split)
+    split = _split_for(split, S)
+    if split is None:
+        x = embed_tokens(p, cfg, tokens, vision_embeds)
+    else:
+        mrope = cfg.attn is not None and cfg.attn.mrope_sections is not None
+        split = dataclasses.replace(
+            split, key_pos=positions[0] if mrope else positions)
+        if cfg.vision_prefix and vision_embeds is not None:
+            x = split.cut(embed_tokens(p, cfg, tokens, vision_embeds))
+        else:
+            x = embed_tokens(p, cfg, split.cut(tokens))
+        positions = split.cut(positions, -1)
     kw = dict(positions=positions, cross_src=cross_src,
-              use_kernel=use_kernel, moe_dispatch=moe_dispatch)
+              use_kernel=use_kernel, moe_dispatch=moe_dispatch, split=split)
     layers = list(zip(p.layers, cfg.blocks()))
 
     def run(x, span):
@@ -193,9 +231,11 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None,
     n_pre, n_per = len(cfg.prefix), len(cfg.period)
     mid = n_pre + n_per * cfg.n_periods
     if remat and torch.is_grad_enabled() and cfg.n_periods:
+        keep = {} if split is None else {"context_fn": split.remat_contexts}
         x = run(x, layers[:n_pre])
         for i in range(n_pre, mid, n_per):
-            x = checkpoint(run, x, layers[i:i + n_per], use_reentrant=False)
+            x = checkpoint(run, x, layers[i:i + n_per], use_reentrant=False,
+                           **keep)
         x = run(x, layers[mid:])
     else:
         x = run(x, layers)
@@ -210,7 +250,11 @@ def lm_loss(p: Model, cfg: ModelConfig, tokens, labels, *,
     reduction="mean": the scalar mean over live tokens.
     reduction="sum_count": (sum, live count), what data-parallel shards
     exchange so that the global mean is exact under uneven masking.
-    ``kw`` goes to ``forward``."""
+    ``kw`` goes to ``forward``; under a sequence split (``split``) the
+    loss is over this model rank's rows."""
+    split = _split_for(kw.get("split"), tokens.shape[1])
+    if split is not None:
+        labels = split.cut(labels)
     logits = forward(p, cfg, tokens, **kw).float()
     mask = labels >= 0
     lbl = torch.where(mask, labels, 0).long()

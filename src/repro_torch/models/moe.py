@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import mlp
-from repro_torch.models.common import dense_init_
+from repro_torch.models.common import dense_init_, linear
 from repro_torch.models.config import MoEConfig
 
 DENSE_CHUNK = 1024          # token rows per dense-dispatch chunk
@@ -89,7 +89,7 @@ def route(p: MoE, cfg: MoEConfig, x):
     [T, E]); the router product and the scores in f32.  Sigmoid routing
     selects on ``scores + router_bias`` (the bias only biases the
     choice) and gathers the weights from the unbiased scores."""
-    logits = x.float() @ p.router
+    logits = linear(x.float(), p.router)
     if cfg.router == "sigmoid":
         scores = torch.sigmoid(logits)
         sel = scores + p.router_bias

@@ -15,6 +15,15 @@ activation dtype before the token-shift mix; the decay is computed in
 f32 from the bf16 LoRA product; the SiLU gate and the channel mix's
 sigmoid run op by op in the activation dtype; the group norm takes the
 population variance with eps 1e-5 on the f32 wkv output.
+
+Under a sequence split (``split``) the time mix runs on the model
+group's gathered rows and keeps this rank's (exact; the recurrence is
+not carried from rank to rank); the channel mix takes its token shift
+from the gathered rows and runs its products on its own.  Decode on a
+mesh: the products are column blocks (``models.common.linear``), ``mu``
+mixes the rank's channels (``channelwise``), and a state ``s`` held as
+a block of whole heads (``train.shard.Resident``) runs the recurrence of
+those heads where it is stored.
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ from torch import nn
 
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import wkv6_ref
-from repro_torch.models.common import dense_init_
+from repro_torch.models.common import channelwise, dense_init_, linear
 from repro_torch.models.config import RWKVConfig
 from repro_torch.models.mlp import silu
 
@@ -115,18 +124,22 @@ def _token_shift(x, last=None):
 wkv_scan = wkv6_ref
 
 
+def _mix(mu, x, xx):
+    """The token-shift mix of each stream: [n_streams, ..., d]."""
+    mu = mu.to(x.dtype)
+    return torch.stack([x + xx * mu[i] for i in range(mu.shape[0])])
+
+
 def _mix_streams(p: TimeMix, cfg: RWKVConfig, x, shifted):
-    xx = shifted - x
-    mu = p.mu.to(x.dtype)
-    xr, xk, xv, xw, xg = (x + xx * mu[i] for i in range(5))
+    xr, xk, xv, xw, xg = channelwise(_mix, p.mu, x, shifted - x)
     H, N = x.shape[-1] // cfg.head_dim, cfg.head_dim
     shp = x.shape[:-1] + (H, N)
-    r = (xr @ p.wr).reshape(shp)
-    k = (xk @ p.wk).reshape(shp)
-    v = (xv @ p.wv).reshape(shp)
-    g = silu(xg @ p.wg)
+    r = linear(xr, p.wr).reshape(shp)
+    k = linear(xk, p.wk).reshape(shp)
+    v = linear(xv, p.wv).reshape(shp)
+    g = silu(linear(xg, p.wg))
     w = torch.exp(-torch.exp(
-        p.w0.float() + ((xw @ p.w_lora_a) @ p.w_lora_b).float()))
+        p.w0.float() + linear(linear(xw, p.w_lora_a), p.w_lora_b).float()))
     return r, k, v, w.reshape(shp), g
 
 
@@ -138,8 +151,13 @@ def _group_norm(y, p: TimeMix, eps=1e-5):
     return y.reshape(y.shape[:-2] + (-1,)) * p.ln_w + p.ln_b
 
 
-def time_mix(p: TimeMix, cfg: RWKVConfig, x, *, use_kernel=False):
-    """Full-sequence time mix: x [B, T, d] -> [B, T, d]."""
+def time_mix(p: TimeMix, cfg: RWKVConfig, x, *, use_kernel=False,
+             split=None):
+    """Full-sequence time mix: x [B, T, d] -> [B, T, d]; ``split``: x
+    holds this model rank's rows (module docstring)."""
+    if split is not None:
+        return split.own(lambda xs: time_mix(p, cfg, xs,
+                                             use_kernel=use_kernel), x)
     d = x.shape[-1]
     H, N = d // cfg.head_dim, cfg.head_dim
     r, k, v, w, g = _mix_streams(p, cfg, x, _token_shift(x))
@@ -149,16 +167,20 @@ def time_mix(p: TimeMix, cfg: RWKVConfig, x, *, use_kernel=False):
     else:
         y, _ = wkv_scan(r, k, v, w, u)
     y = _group_norm(y, p).to(x.dtype) * g
-    return y @ p.wo
+    return linear(y, p.wo)
 
 
-def channel_mix(p: ChannelMix, x, last=None):
-    xx = _token_shift(x, last) - x
-    mu = p.mu.to(x.dtype)
-    xk, xr = x + xx * mu[0], x + xx * mu[1]
-    r = sigmoid(xr @ p.wr)
-    k = torch.relu(xk @ p.wk).square()
-    return r * (k @ p.wv)
+def channel_mix(p: ChannelMix, x, last=None, split=None):
+    """The channel mix; ``split``: x holds this model rank's rows, the
+    token shift comes from the gathered rows."""
+    if split is None:
+        shifted = _token_shift(x, last)
+    else:
+        shifted = split.cut(_token_shift(split.gather(x)))
+    xk, xr = channelwise(_mix, p.mu, x, shifted - x)
+    r = sigmoid(linear(xr, p.wr))
+    k = torch.relu(linear(xk, p.wk)).square()
+    return r * linear(k, p.wv)
 
 
 # ---------------------------------------------------------------------------
@@ -186,10 +208,21 @@ def decode_time_mix(p: TimeMix, cfg: RWKVConfig, x, state: dict):
     d = x.shape[-1]
     H, N = d // cfg.head_dim, cfg.head_dim
     r, k, v, w, g = _mix_streams(p, cfg, x, state["x_tm"][:, None])
-    y, s = wkv_scan(r, k, v, w, p.u.reshape(H, N), s0=state["s"])
+    s0, u = state["s"], p.u.reshape(H, N)
+    if getattr(s0, "resident", False):
+        # the state holds whole heads [h0, h0 + Hb): their recurrence
+        # runs here, and their outputs are gathered over the group
+        Hb = s0.block.shape[1]
+        hs = slice(s0.index * Hb, (s0.index + 1) * Hb)
+        y, s = wkv_scan(r[:, :, hs], k[:, :, hs], v[:, :, hs], w[:, :, hs],
+                        u[hs], s0=s0.block)
+        y = s0.all_gather(y, 2)
+        s = s0.with_block(s)
+    else:
+        y, s = wkv_scan(r, k, v, w, u, s0=s0)
     y = _group_norm(y, p).to(x.dtype) * g
     state = dict(state, s=s, x_tm=x[:, 0].to(state["x_tm"].dtype))
-    return y @ p.wo, state
+    return linear(y, p.wo), state
 
 
 def decode_channel_mix(p: ChannelMix, x, state: dict):

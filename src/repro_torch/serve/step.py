@@ -7,8 +7,15 @@ expert-parallel dispatch over a mesh of ranks (``train.moe_dispatch``).
 Decode samples greedily (argmax), like the reference's step.
 
 ``mesh_decode_step`` decodes on a mesh of ranks, each storing its share
-of the parameters (``train.shard``: a layer's are gathered while it
-runs) and of the cache (``train.sharding.cache_specs``):
+of the parameters (``train.shard``) and of the cache
+(``train.sharding.cache_specs``).  A parameter block cut over ``model``
+stays where it is stored (``train.shard.Resident``): it is gathered
+over the data axes only, a weight cut on its output dim multiplies its
+column block and the product's few rows are all-gathered over
+``model`` (``models.common.linear``), the embedding looks up the rows it
+holds, an elementwise parameter mixes its channels, an expert stack
+runs its experts; parameters without a ``model`` cut are gathered as
+the layer runs.  The cache layouts:
   * normal layout (decode_32k) -- batch rows over the data axes (each
     rank decodes its own rows), the KV / latent sequence over ``model``;
   * ``long_context`` (long_500k, batch 1) -- every rank decodes the same
@@ -20,16 +27,19 @@ ranks combine them exactly by log-sum-exp: the group's max, then the
 sums of the exponentials and of their products with v (three
 all-reduces of O(heads) and O(heads x head_dim) values a row); no rank
 gathers the cache.  The rank holding position ``len`` writes the new
-k/v (latent) row.  Recurrent states (rwkv ``s``, mamba ``h`` and
-``conv``) are stored cut over ``model`` and gathered for the step, then
-cut again.  An MoE layer whose rows are cut over the data axes gathers
-the layer's input rows of the data group, runs the capacity dispatch on
-the whole batch (so the capacity and the drops are the one-device
-decode's) and keeps its own rows.
+k/v (latent) row.  Recurrent states cut over ``model``: rwkv's ``s``
+(whole heads) stays where it is stored and runs its heads' recurrence
+there; mamba's ``h`` and ``conv`` are gathered for the step, then cut
+again.  An MoE layer whose rows are cut over the data axes gathers the
+layer's input rows of the data group; each rank routes on the gathered
+router logits, runs its resident experts on the whole batch (so the
+capacity and the drops are the one-device decode's), the outputs are
+summed over the expert axes, and it keeps its own rows.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Callable
 
 import torch
@@ -147,9 +157,13 @@ class SeqShard:
 _SEQ_LEAVES = ("k", "v", "ckv", "kr")
 
 
+_RESIDENT_STATES = ("s",)     # rwkv: whole heads run where they are
+
+
 def _layer_plans(spec_layer: dict, mesh):
     """(the seq axes of the layer's KV / latent cache, {(sub, leaf):
-    ShardPlan} of its other leaves' non-row cuts)."""
+    ShardPlan} of its other leaves' non-row cuts; a resident state's
+    plan keeps its ``model`` cut)."""
     seq, rec = (), {}
     for sub, leaves in spec_layer.items():
         for leaf, spec in leaves.items():
@@ -159,24 +173,49 @@ def _layer_plans(spec_layer: dict, mesh):
                 seq = tuple(a for a in sharding.entry_axes(spec[1])
                             if mesh.shape[a] > 1)
             else:
-                plan = shard.ShardPlan((None,) + tuple(spec[1:]), mesh)
-                if plan.cuts:
+                plan = shard.ShardPlan(
+                    (None,) + tuple(spec[1:]), mesh, what="state",
+                    keep=("model",) if leaf in _RESIDENT_STATES else ())
+                if plan.cuts or plan.kept:
                     rec[(sub, leaf)] = plan
     return seq, rec
 
 
 def _rows_dispatch(cfg, mesh, d_axes):
     """Decode's capacity dispatch (factor 2) over the batch rows of the
-    data group: every rank runs it on the gathered rows and keeps its
-    own."""
+    data group (none: the rank's rows are the batch): every rank runs it
+    on the gathered rows and keeps its own.  Expert stacks held as
+    blocks (``Resident``) run the block's experts, routed on the
+    gathered logits over the whole layer's capacity, and the outputs are
+    summed over the block's axes; the shared experts are added once."""
+    from repro_torch.models import mlp
     from repro_torch.models import moe as moe_mod
-    group = mesh.group(d_axes)
+    group = mesh.group(d_axes) if d_axes else None
 
     def dispatch(p, cfg_moe, h):
         rows = h.shape[0]
-        whole = comm.all_gather(h.contiguous(), group)
-        out = moe_mod.forward_dropless(p, cfg_moe, whole, cfg.mlp_act,
-                                       capacity_factor=2.0)
+        whole = (comm.all_gather(h.contiguous(), group) if group is not None
+                 else h)
+        wg = p.w_gate
+        if getattr(wg, "resident", False):
+            E_loc = wg.block.shape[0]
+            lo = wg.index * E_loc
+            held = types.SimpleNamespace(
+                **{k: getattr(p, k) for k in ("router", "router_bias")
+                   if hasattr(p, k)},
+                w_gate=wg.block, w_up=p.w_up.block, w_down=p.w_down.block)
+            part = dataclasses.replace(cfg_moe, held=(lo, lo + E_loc),
+                                       n_shared=0)
+            out = comm.all_reduce(moe_mod.forward_dropless(
+                held, part, whole, cfg.mlp_act, capacity_factor=2.0),
+                wg.group)
+            if cfg_moe.n_shared:
+                out = out + mlp.forward(p.shared, whole, cfg.mlp_act)
+        else:
+            out = moe_mod.forward_dropless(p, cfg_moe, whole, cfg.mlp_act,
+                                           capacity_factor=2.0)
+        if group is None:
+            return out
         r0 = mesh.axis_index(d_axes) * rows
         return out[r0:r0 + rows]
     return dispatch
@@ -201,12 +240,13 @@ def mesh_decode_step(cfg, mesh, opts: ServeOptions, params, cache):
     pspec = sharding.param_specs(params, cfg, mesh)
     cspec = sharding.cache_specs(cache, cfg, mesh,
                                  long_context=opts.long_context)
-    plans = shard.plans_for(pspec, mesh)
+    plans = shard.plans_for(pspec, mesh, keep=lambda k, s: ("model",))
     per_layer = [_layer_plans(ls, mesh) for ls in cspec["layers"]]
     moe_dispatch = None
     d_axes = tuple(a for a in sharding.data_axes(mesh) if mesh.shape[a] > 1)
-    if cfg.moe is not None and d_axes and not opts.long_context:
-        moe_dispatch = _rows_dispatch(cfg, mesh, d_axes)
+    if cfg.moe is not None:
+        moe_dispatch = _rows_dispatch(
+            cfg, mesh, () if opts.long_context else d_axes)
     for seq_axes, rec in per_layer:           # groups in one order
         if seq_axes:
             mesh.group(seq_axes)
@@ -216,12 +256,12 @@ def mesh_decode_step(cfg, mesh, opts: ServeOptions, params, cache):
 
     @torch.no_grad()
     def step(blocks, cache, tokens, cross_src=None):
-        view = shard.sharded_model(cfg, blocks, plans)
+        view = shard.sharded_model(cfg, blocks, plans, resident=True)
         seqs, full = [], []
         for lc, (seq_axes, rec) in zip(cache["layers"], per_layer):
             lc = {k: dict(v) for k, v in lc.items()}
             for (sub, leaf), plan in rec.items():
-                lc[sub][leaf] = plan.gather(lc[sub][leaf])
+                lc[sub][leaf] = shard.hold(lc[sub][leaf], plan)
             start = 0
             if seq_axes:
                 blk = next(lc[s][leaf] for s in lc for leaf in lc[s]
@@ -235,7 +275,8 @@ def mesh_decode_step(cfg, mesh, opts: ServeOptions, params, cache):
                                     moe_dispatch=moe_dispatch)
         for lc, (_, rec) in zip(new["layers"], per_layer):
             for (sub, leaf), plan in rec.items():
-                lc[sub][leaf] = plan.cut(lc[sub][leaf])
+                t = lc[sub][leaf]
+                lc[sub][leaf] = t.block if plan.kept else plan.cut(t)
         last = logits[:, -1]
         nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt[:, None], new, last

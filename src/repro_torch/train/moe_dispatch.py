@@ -11,9 +11,18 @@ Layout, on every rank of the mesh (each rank calls with its own tensors):
   x        [B_local, S, d]  this rank's batch rows (sharded over the
                             data axes, the same on every model rank);
                             each model rank takes its 1/M token slice.
+                            Under a sequence split (``split``) x is the
+                            rank's block of the sequence: one uneven
+                            all-to-all over ``model``
+                            (``comm.seq_to_tokens``) turns it into the
+                            same token slice as without the split, on
+                            every mesh (so the capacity and the drops
+                            are the unsplit step's), and one turns the
+                            output back.
   experts  [E, d, f] (the layer holds every expert: this rank's E_loc
-           are cut from it) or [E_loc, d, f] (the layer holds its own,
-           ``MoEConfig.held``).
+           are cut from it) or [E_loc, d, f] (the layer holds its own:
+           ``MoEConfig.held``, or the sharded step's block, which stays
+           where it is stored over the EP axes).
   router   [d, E]           the same on every rank.
 
 Dispatch is capacity-based (static shapes; overflow drops): per-source
@@ -26,6 +35,11 @@ other's transposes; the router and the full expert stacks, used by a
 rank for its own tokens or experts only, get their gradients summed
 over the ranks that share them, so that a data-parallel sum over the
 data axes on top gives every rank the gradient of the one-device step.
+An expert block held over the EP axes already has the gradient of every
+token the alltoall brought to it; the sharded step sums it over the
+data axes the EP axes do not name.  Under the split the router's and
+the shared experts' gradients are partial sums over the rank's rows,
+which the sharded step sums over ``model``.
 The collectives go through ``train.comm``.
 """
 from __future__ import annotations
@@ -145,8 +159,39 @@ def make_moe_dispatch(mesh, opts: EPOptions, act: str = "silu"):
     ``mesh`` is a ``launch.mesh.Mesh`` with a ``"model"`` axis; every
     rank of it must call the dispatch for every MoE layer."""
 
-    def dispatch(p, cfg: MoEConfig, x):
-        out = _dispatch(p, cfg, x, mesh=mesh, opts=opts, act=act)
+    def dispatch(p, cfg: MoEConfig, x, split=None):
+        B, S, d = x.shape
+        kw = dict(mesh=mesh, opts=opts, act=act)
+        rp = {k: getattr(p, k) for k in ("router", "router_bias")
+              if hasattr(p, k)}
+        mgroup, Mn = mesh.group("model"), mesh.shape["model"]
+        if split is not None:
+            # the rank's sequence block -> the unsplit step's token slice
+            # and back; the router's gradient is summed over model by
+            # the sharded step
+            xs = comm.seq_to_tokens(x, split.group)
+            out = comm.tokens_to_seq(_dispatch(p, cfg, xs, rp, **kw),
+                                     split.group, B)
+        elif Mn == 1:
+            out = _dispatch(p, cfg, x.reshape(B * S, d), rp,
+                            **kw).reshape(B, S, d)
+        else:
+            if B * S % Mn:
+                raise ValueError(f"{B * S} tokens do not split over the "
+                                 f"model axis of {Mn}")
+            T, m = B * S // Mn, mesh.coords["model"]
+            xt = x.reshape(B * S, d)
+            if _uses_grad(x, *rp.values()):
+                xs = _SliceRows.apply(xt, m * T, T, mgroup)
+                rp = {k: _SumGrad.apply(v, mgroup, 1) for k, v in rp.items()}
+            else:
+                xs = xt[m * T: (m + 1) * T]
+            # rebuild the full token set across the model axis
+            gkw = dict(algorithm=opts.allgather, policy=opts.policy,
+                       transport=opts.transport, resilience=opts.resilience,
+                       topo=mesh.topology("model"))
+            out = _AllGather.apply(_dispatch(p, cfg, xs, rp, **kw), mgroup,
+                                   gkw).reshape(B, S, d)
         if cfg.n_shared:
             out = out + mlp.forward(p.shared, x, act)
         return out
@@ -187,8 +232,9 @@ def _experts(h, w_gate, w_up, w_down, act):
 
 
 def _local_experts(p, cfg: MoEConfig, mesh, ep, E_loc: int, grad: bool):
-    """This rank's expert stacks [E_loc, ...]: cut from the layer's full
-    stacks, or the layer's own when it holds only them."""
+    """This rank's expert stacks [E_loc, ...]: the layer's own when it
+    holds only them (``MoEConfig.held``, or the sharded step's block),
+    else cut from the layer's full stacks (a replicated step)."""
     ws = (p.w_gate, p.w_up, p.w_down)
     held = ws[0].shape[0]
     if held == E_loc and held != cfg.n_experts:
@@ -207,34 +253,23 @@ def _local_experts(p, cfg: MoEConfig, mesh, ep, E_loc: int, grad: bool):
     return tuple(w[e0: e0 + E_loc] for w in ws)
 
 
-def _dispatch(p, cfg: MoEConfig, x, *, mesh, opts: EPOptions, act):
-    B, S, d = x.shape
+def _dispatch(p, cfg: MoEConfig, xs, rp: dict, *, mesh, opts: EPOptions,
+              act):
+    """The routed experts on this rank's token slice xs [T, d], routed
+    by ``rp`` (the router's tensors)."""
+    T, d = xs.shape
     ep = ep_axes_for(cfg, mesh)
     ep_group, ep_topo = mesh.group(ep), mesh.topology(ep)
-    mgroup, Mn = mesh.group("model"), mesh.shape["model"]
-    m = mesh.coords["model"]
     N_ep = mesh.axis_size(ep)
     E, K = cfg.n_experts, cfg.top_k
     if E % N_ep:
         raise ValueError(f"{E} experts do not shard over {N_ep} ranks")
     E_loc = E // N_ep
-    T_total = B * S
-    if T_total % Mn:
-        raise ValueError(f"{T_total} tokens do not split over the model "
-                         f"axis of {Mn}")
-    T = T_total // Mn
-    grad = _uses_grad(x, p.router)
+    grad = _uses_grad(xs, *rp.values())
     kw = dict(algorithm=opts.alltoall, policy=opts.policy,
               transport=opts.transport, resilience=opts.resilience,
               topo=ep_topo)
 
-    xt = x.reshape(T_total, d)
-    xs = (_SliceRows.apply(xt, m * T, T, mgroup) if grad
-          else xt[m * T: (m + 1) * T])
-    rp = {k: getattr(p, k) for k in ("router", "router_bias")
-          if hasattr(p, k)}
-    if grad:
-        rp = {k: _SumGrad.apply(v, mgroup, 1) for k, v in rp.items()}
     w, idx, _ = moe.route(types.SimpleNamespace(**rp), cfg, xs)   # [T, k]
     C = max(1, int(T * K / E * opts.capacity_factor))
 
@@ -252,7 +287,7 @@ def _dispatch(p, cfg: MoEConfig, x, *, mesh, opts: EPOptions, act):
     w_gate, w_up, w_down = _local_experts(p, cfg, mesh, ep, E_loc, grad)
     k_ov = _overlap_chunks(opts, cfg=cfg, topo=ep_topo, E_loc=E_loc,
                            N_ep=N_ep, C=C, d=d, f=w_gate.shape[2],
-                           itemsize=x.element_size())
+                           itemsize=xs.element_size())
     if k_ov >= 2:
         # capacity-major within each destination block: a row chunk is
         # capacity slice i of every local expert; each chunk's alltoall
@@ -277,13 +312,6 @@ def _dispatch(p, cfg: MoEConfig, x, *, mesh, opts: EPOptions, act):
             E_loc, N_ep, C, d)
 
     back = ye4.transpose(0, 1).reshape(N_ep * E_loc * C, d)
-    ret = _AllToAll.apply(back.to(x.dtype), ep_group, kw)
+    ret = _AllToAll.apply(back.to(xs.dtype), ep_group, kw)
     gathered = torch.cat([ret, ret.new_zeros((1, d))])[dest]
-    out_slice = torch.einsum("tkd,tk->td", gathered.reshape(T, K, d), w)
-
-    # rebuild the full token set across the model axis
-    gkw = dict(algorithm=opts.allgather, policy=opts.policy,
-               transport=opts.transport, resilience=opts.resilience,
-               topo=mesh.topology("model"))
-    out = _AllGather.apply(out_slice, mgroup, gkw)
-    return out.reshape(B, S, d)
+    return torch.einsum("tkd,tk->td", gathered.reshape(T, K, d), w)

@@ -77,7 +77,8 @@ class TrainOptions:
     weight_decay: float = 0.1
 
 
-def _loss_fn(cfg, opts: TrainOptions, moe_dispatch, reduction="mean"):
+def _loss_fn(cfg, opts: TrainOptions, moe_dispatch, reduction="mean",
+             split=None):
     def loss(model, batch):
         kw = {}
         if cfg.encoder is not None:
@@ -87,7 +88,7 @@ def _loss_fn(cfg, opts: TrainOptions, moe_dispatch, reduction="mean"):
         return M.lm_loss(model, cfg, batch["tokens"], batch["labels"],
                          use_kernel=opts.use_kernel, remat=opts.remat,
                          moe_dispatch=moe_dispatch, reduction=reduction,
-                         **kw)
+                         split=split, **kw)
     return loss
 
 
@@ -124,8 +125,13 @@ def _moe_dispatch(cfg, mesh, opts: TrainOptions):
                             resilience=opts.resilience),
             cfg.mlp_act)
     if opts.moe_mode == "dropless":
-        return lambda p, c, x: moe_mod.forward_dropless(p, c, x,
-                                                        cfg.mlp_act)
+        def dropless(p, c, x, split=None):
+            # under a sequence split the capacity is the data rank's
+            # whole rows': the dispatch runs on the gathered rows
+            def run(xs):
+                return moe_mod.forward_dropless(p, c, xs, cfg.mlp_act)
+            return run(x) if split is None else split.own(run, x)
+        return dropless
     raise ValueError(f"unknown moe_mode {opts.moe_mode!r}")
 
 
@@ -270,11 +276,20 @@ def sharded_train_step(cfg, mesh, opts: TrainOptions, state: dict,
     ranks sum (loss, live count) over the data axes.  The clip sees the
     global norm: each block's squares once, from the rank that owns it
     (its coordinate 0 on every axis its spec does not name), summed
-    over the mesh.  AdamW then updates the blocks.  The model axis is
-    storage only: every model rank computes the same rows (no tensor
-    parallelism).  With ``moe_mode="mpix_ep"`` the expert stacks are
-    gathered whole and the dispatch cuts its experts from them (correct,
-    not lean).  Explicit mode: ``make_train_step``, everything
+    over the mesh.  AdamW then updates the blocks.
+
+    Compute on the model axis: where the mesh's ``model`` axis has more
+    than one rank and the batch's S divides it, the step splits the
+    sequence (``shard.SeqSplit``): each model rank runs its S/n rows
+    (attention gathers k/v over ``model``, the recurrent mixers run on
+    the gathered rows and keep their own), so the blocks' gradients are
+    summed over ``model`` as well as the data axes (a reduce-scatter
+    where the cut allows) and so are (loss, live count).  Otherwise every
+    model rank computes the same rows (storage only).  With
+    ``moe_mode="mpix_ep"`` each expert stack's block over the EP axes
+    stays where it is stored (gathered over ``data`` only) and is the
+    dispatch's local experts; under the split a rank's rows are its
+    token slice.  Explicit mode: ``make_train_step``, everything
     replicated.  Every collective goes through ``train.comm``, so on a
     ``MeshLayout`` the step runs without ranks and records them."""
     sspec = state_specs(state, cfg, mesh, opts)
@@ -289,20 +304,38 @@ def sharded_train_step(cfg, mesh, opts: TrainOptions, state: dict,
         return make_train_step(cfg, mesh, opts), sspec
     if opts.dp_mode != "fsdp":
         raise ValueError(f"unknown dp_mode {opts.dp_mode!r}")
-    plans = shard.plans_for(sspec["params"], mesh)
+    keep = None
+    if opts.moe_mode == "mpix_ep" and cfg.moe is not None:
+        from repro_torch.train.moe_dispatch import ep_axes_for
+        ep = ep_axes_for(cfg.moe, mesh)
+        keep = (lambda k, s: ep if k.rsplit(".", 1)[-1] in
+                ("w_gate", "w_up", "w_down") and ".moe." in k
+                and ".shared." not in k else ())
     d_axes = data_axes(mesh)
-    d_group = mesh.group(d_axes) if d_axes else None
+    split = shard.seq_split(mesh)
+    # (plans, group of the loss sums) without and with the split; every
+    # group is created here, in one order on every rank
+    modes = {False: (shard.plans_for(sspec["params"], mesh, keep=keep),
+                     mesh.group(d_axes) if d_axes else None)}
+    if split is not None:
+        s_axes = d_axes + ("model",)
+        modes[True] = (shard.plans_for(sspec["params"], mesh, keep=keep,
+                                       sum_axes=s_axes), mesh.group(s_axes))
     world = mesh.group(mesh.axis_names)
     moe_dispatch = _moe_dispatch(cfg, mesh, opts)
-    sum_loss = _loss_fn(cfg, opts, moe_dispatch, reduction="sum_count")
+    losses = {on: _loss_fn(cfg, opts, moe_dispatch, reduction="sum_count",
+                           split=split if on else None) for on in modes}
 
     def _sum(x, group):
         return x if group is None else comm.all_reduce(x, group)
 
     def step(state, batch):
+        on = split is not None and split.applies(batch["tokens"].shape[1])
+        plans, d_group = modes[on]
         blocks = {k: v.detach().requires_grad_(True)
                   for k, v in state["params"].items()}
-        lsum, cnt = sum_loss(shard.sharded_model(cfg, blocks, plans), batch)
+        lsum, cnt = losses[on](shard.sharded_model(cfg, blocks, plans),
+                               batch)
         gs = torch.autograd.grad(lsum, list(blocks.values()),
                                  allow_unused=True)
         cnt_g = _sum(cnt, d_group)

@@ -9,20 +9,22 @@ per-device step on ``meta``, with nothing allocated.
   this host); ``chip_smoke.py`` phase (S2) runs them whole;
 - the parameter bytes a device holds equal ``train.sharding``'s share,
   exactly;
-- the FLOPs equal an analytic count of the products the step runs:
-  2 x (matrix parameters a token goes through) x T a pass, the plain
-  attention's full S^2 score and value products (4 B H S_q S_k D, q rows
-  padded to whole chunks where the core chunks), the head 2 T d V, and
-  the passes: forward, the remat recompute of every periodic layer,
-  backward twice the forward.  The recompute stops once every saved
+- the FLOPs equal an analytic count of the products the step runs on
+  the device's rows: the sequence split over ``model`` gives each
+  device T = B S / n_model of its data rank's B S tokens, so 2 x (matrix
+  parameters a token goes through) x T a pass, the plain attention's
+  score and value products of its S / n_model query rows against all S
+  keys (4 B H S_q S_k D, q rows padded to whole chunks where the core
+  chunks), the head 2 T d V, and the passes: forward, the remat
+  recompute of every periodic layer, backward twice the forward.  The recompute stops once every saved
   tensor is rebuilt (``torch.utils.checkpoint``'s early stop), so a
   periodic layer's last product (the MLP's, or the shared experts',
   ``w_down``) is not re-run.  Dense: within 2%.  MoE under
   ``mpix_ep``: the routed experts counted at their capacity slots, E C
   rows with C = int(T_slice k / E x 1.25) (the capacity excess: about
-  1.25x the k T_slice rows a token-exact count gives), the router on
-  the device's token slice T / M, the shared experts on all T; within
-  2% (measured: smollm exact, moonshot 2e-6 over);
+  1.25x the k T_slice rows a token-exact count gives), the router and
+  the shared experts on the device's token slice (its T rows); within
+  2%;
 - the CLI writes the JSON with those keys and SKIPs the cells
   ``runnable()`` rules out.
 
@@ -106,9 +108,16 @@ def test_param_bytes_are_the_spec_share(results, arch, shape, mp):
         want_opt = sum(sharding.shard_bytes(t.shape, 4, specs[k], mesh)
                        for k, t in sd.items()) * 2 + 8
         assert m["opt_bytes"] == want_opt
-    # the largest gathered parameter fits under the temp peak
-    assert m["temp_bytes"] > max(t.numel() * t.element_size()
-                                 for t in sd.values())
+    # the largest gathered parameter fits under the temp peak (a
+    # decode gathers a parameter cut over ``model`` over the data axes
+    # only: its model block)
+    def gathered(k, t):
+        n = 1
+        if SHAPES[shape].kind == "decode" and "model" in sharding.spec_axes(
+                specs[k]):
+            n = mesh.shape["model"]
+        return t.numel() * t.element_size() // n
+    assert m["temp_bytes"] > max(gathered(k, t) for k, t in sd.items())
 
 
 def _mat(params: dict, prefix: str, skip=()) -> int:
@@ -122,8 +131,10 @@ def analytic_train_flops(cfg, mesh, opts_capacity=1.25) -> float:
     module docstring for the terms)."""
     sp = SHAPES["train_4k"]
     n_data = mesh.axis_size(sharding.data_axes(mesh))
+    Mn = mesh.shape["model"]
     B, S = sp.global_batch // n_data, sp.seq_len
-    T = B * S
+    Sq = S // Mn                            # the device's query rows
+    T = B * Sq
     sd = M.Model(cfg, device="meta").state_dict()
     n_pre = len(cfg.prefix)
     mid = n_pre + len(cfg.period) * cfg.n_periods
@@ -134,17 +145,15 @@ def analytic_train_flops(cfg, mesh, opts_capacity=1.25) -> float:
         if spec.mixer == "attn":
             a = cfg.attn
             c = attention._chunk_rows(B, a.n_heads, S)
-            rows = (S if S <= attention.CHUNK_THRESHOLD and
-                    B * a.n_heads * S * S <= attention.CHUNK_SCORES
-                    else -(-S // c) * c)
+            rows = (Sq if Sq <= attention.CHUNK_THRESHOLD and
+                    B * a.n_heads * Sq * S <= attention.CHUNK_SCORES
+                    else -(-Sq // c) * c)
             f += 4 * B * a.n_heads * rows * S * a.head_dim
         if spec.ff == "moe":
             moe = cfg.moe
-            Mn = mesh.shape["model"]
-            Ts = T // Mn
-            C = max(1, int(Ts * moe.top_k / moe.n_experts * opts_capacity))
+            C = max(1, int(T * moe.top_k / moe.n_experts * opts_capacity))
             d, fe = cfg.d_model, moe.d_expert
-            f += 2 * Ts * d * moe.n_experts                      # router
+            f += 2 * T * d * moe.n_experts                       # router
             f += 2 * 3 * d * fe * moe.n_experts * C              # experts
             f += 2 * T * _mat(sd, pre + "moe.shared.")           # shared
         total += f * (4 if n_pre <= i < mid else 3)

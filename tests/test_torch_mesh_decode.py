@@ -20,8 +20,11 @@ spawn each (tests/torch_mesh_decode_worker.py):
   comes back 2^-9 relative (measured 5.5e-5 on the logits);
 - each rank stores exactly its spec share of the cache and parameters,
   before and after the steps;
-- no KV or latent cache is gathered: each step's all-gathers are
-  exactly the parameters' and the recurrent states';
+- no KV or latent cache is gathered, and no parameter over ``model``:
+  each step's all-gathers are the parameter blocks' over the data axes
+  only, the recurrent states' (rwkv's ``s`` of whole heads stays where
+  it is stored), the MoE rows of the data group, and activations over
+  ``model`` (the column products' outputs);
 - ``launch.serve --mesh local`` on 4 ranks gives the one-process
   tokens, and ``--mesh single`` on 4 ranks refuses with a message that
   names the 256 ranks it needs.
@@ -155,9 +158,18 @@ def test_mesh_decode_stores_spec_share(outs, n, name, long):
 
 @pytest.mark.parametrize("n,name,long", CASES)
 def test_mesh_decode_gathers_no_cache(outs, n, name, long):
-    """Each step's all-gathers are the parameter blocks' and the
-    recurrent states' (replayed on a layout, where they are counted),
-    nothing more: the KV / latent blocks never move."""
+    """Each step's all-gathers (counted from the plans on a layout):
+    the parameter blocks' cuts over the data axes only (a cut over
+    ``model`` stays where it is stored), the recurrent states' but
+    rwkv's ``s``, the MoE layers' rows of the data group, and over
+    ``model`` one activation a product of a kept block (the tied head's
+    included) and one a layer whose ``s`` stays (its heads' output);
+    nothing more: the KV / latent blocks never move.  Each gather over
+    ``model`` (but a state's) holds at most the rank's rows times the
+    widest such output, so no cache or parameter block passes as an
+    activation.  All-reduces: the log-sum-exp combine's three a
+    sequence-cut layer, one for each table looked up where it is
+    stored and one for each expert stack run where it is stored."""
     cfg = worker.CASES[name]()
     params = M.Model(cfg, device="meta").state_dict()
     B = worker.batch_for(long)
@@ -167,9 +179,10 @@ def test_mesh_decode_gathers_no_cache(outs, n, name, long):
     step, (pspec, cspec) = mesh_decode_step(
         cfg, mesh, ServeOptions(long_context=long),
         {k: v.float() for k, v in params.items()}, full)
-    plans = shard.plans_for(pspec, mesh)
+    plans = shard.plans_for(pspec, mesh, keep=lambda k, s: ("model",))
     n_param = sum(len(p.cuts) for p in plans.values())
-    n_state = n_seq = 0
+    n_kept = sum(len(p.kept) for p in plans.values())
+    n_state = n_seq = n_s = 0
     for layer in cspec["layers"]:
         seq = False
         for leaves in layer.values():
@@ -179,21 +192,50 @@ def test_mesh_decode_gathers_no_cache(outs, n, name, long):
                 if leaf in ("k", "v", "ckv", "kr"):
                     seq |= any(mesh.shape[a] > 1
                                for a in sharding.entry_axes(spec[1]))
+                elif leaf == "s":
+                    n_s += any("model" in sharding.entry_axes(e)
+                               for e in spec)
                 else:
                     n_state += len(shard.ShardPlan(
                         (None,) + tuple(spec[1:]), mesh).cuts)
         n_seq += seq
+    stack = (lambda k: ".moe.w_" in k and ".shared." not in k)
+    kept = {k: params[k].shape[p.kept[0][0]] for k, p in plans.items()
+            if p.kept and not stack(k)
+            and (k != "embed" or cfg.tie_embeddings)}
+    n_act = len(kept) + n_s
+    widest = max(list(kept.values()) + [cfg.d_model])
+    rows = B if long else B // mesh.axis_size(sharding.data_axes(mesh))
+    d_axes = tuple(a for a in sharding.data_axes(mesh) if mesh.shape[a] > 1)
     n_moe = 0 if long else sum(1 for s in cfg.blocks() if s.ff == "moe")
+    n_lookup = int(bool(plans["embed"].kept))
+    n_experts = sum(1 for k, p in plans.items()
+                    if k.endswith("moe.w_gate") and p.kept)
     for o in outs[n]:
         for log in o[(name, long)]["logs"]:
+            gathers = [e for e in log if e[0] == "all-gather"]
+            params_ = [e for e in gathers if e[5] == "param"]
+            assert len(params_) == n_param
+            assert all(set(e[4]) <= set(d_axes) for e in params_), params_
+            assert sum(e[5] == "state" for e in gathers) == n_state
+            acts = [e for e in gathers if e[5] == ""]
+            # the MoE layers' rows over the data group, the rest the
+            # column products' outputs over model
+            assert sum(e[4] == d_axes for e in acts) == n_moe
+            assert all(e[4] == d_axes or e[4] == ("model",) for e in acts)
+            model = [e for e in gathers if "model" in (e[4] or ())
+                     and e[5] != "state"]
+            assert len(model) == n_act, (len(model), n_act)
+            assert all(e[5] == "" and e[2] <= rows * widest * 4
+                       for e in model), model
             kinds = [e[0] for e in log]
-            # the MoE layers' gathered rows are activations, not cache
-            assert kinds.count("all-gather") == n_param + n_state + n_moe
-            # the log-sum-exp combine: max, sum, weighted values
-            assert kinds.count("all-reduce") == 3 * n_seq
+            assert kinds.count("all-reduce") == (3 * n_seq + n_lookup
+                                                 + n_experts)
     assert n_seq > 0 or name == "rwkv"
     if name == "gemma2":
-        assert n_param > 0
+        assert n_param > 0 and n_kept > 0 and n_act > 0
+    if name == "rwkv":
+        assert n_s > 0
 
 
 def test_launcher_mesh_local_equals_one_process(outs):

@@ -2,11 +2,17 @@
 GPU.
 
     python3 train_profile.py [--arch smollm-360m] [--batch 8] [--seq 2048]
+                             [--model-axis N [--model-rank R]]
 
 Builds the launcher's step (``launch.train.build``: fsdp on one rank,
 remat on, the flash kernel) for the full-size config with random
-weights from seed 0 and the launcher's data stream, takes 3 warm-up
-steps, then:
+weights from seed 0 and the launcher's data stream or, with
+``--model-axis N``, model rank (0, R) (default N - 1, the block with the
+most causal work) of the sequence-split sharded step on a (1, N)
+``MeshLayout``, as ``chip_smoke.py`` (M2) builds it: its collectives are
+recorded and return the stand-ins of ``train.comm``, whose device and
+host time the profile reports on their own ("layout stand-in").  It
+takes 3 warm-up steps, then:
 
 1. one step under ``torch.cuda.set_sync_debug_mode("warn")``: the count
    of operations that made the host wait for the card;
@@ -57,6 +63,21 @@ def _group(name: str) -> str:
     return "other"
 
 
+STAND_IN = "layout stand-in"
+
+
+def _tag_stand_ins(torch) -> None:
+    """Runs each of a layout's collective stand-ins in a profiler range
+    of its own (``STAND_IN``)."""
+    from repro_torch.train import comm
+    inner = comm._stand_in
+
+    def tagged(*a, **kw):
+        with torch.profiler.record_function(STAND_IN):
+            return inner(*a, **kw)
+    comm._stand_in = tagged
+
+
 def _profile(torch, step, state, batch):
     """One step under ``torch.profiler`` (CPU and CUDA), ending in a
     synchronize: (state, metrics, figures)."""
@@ -71,10 +92,16 @@ def _profile(torch, step, state, batch):
     by_group: dict = {}
     rows = []
     busy, kernels, launch_cpu = 0.0, 0, 0.0
+    stand_in = {"calls": 0, "device_ms": 0.0, "host_ms": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             if ev.key.startswith("cuda") and "Launch" in ev.key:
                 launch_cpu += ev.self_cpu_time_total / 1e3
+            if ev.key == STAND_IN:
+                stand_in = {"calls": ev.count,
+                            "device_ms": getattr(ev, "device_time_total",
+                                                 0.0) / 1e3,
+                            "host_ms": ev.cpu_time_total / 1e3}
             continue
         dt = getattr(ev, "device_time_total", None)
         if dt is None:
@@ -92,6 +119,7 @@ def _profile(torch, step, state, batch):
         "profiled_wall_ms": wall * 1e3, "device_busy_ms": busy,
         "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
         "device_ops": kernels, "launch_api_cpu_ms": launch_cpu,
+        "stand_in": stand_in,
         "device_ms_by_group": {k: round(v, 3) for k, v in sorted(
             by_group.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"ms": round(ms, 3), "count": n, "name": k}
@@ -116,17 +144,47 @@ def _issue(torch, step, state, batches):
     return state, statistics.median(issue), statistics.median(device)
 
 
-def _setup(torch, train, args, batch, seq, dev, n_batches):
-    targs = train._parser().parse_args(
-        ["--arch", args.arch, "--batch", str(batch), "--seq", str(seq),
-         "--steps", "20"])
-    cfg, mesh, opts = train.build(targs, dev)
-    from repro_torch.data import DataPipeline, PipelineConfig
-    from repro_torch.train.step import init_train_state, make_train_step
-    step = make_train_step(cfg, mesh, opts)
+def _split_step(torch, args, dev):
+    """Model rank (0, ``--model-rank``) of the sequence-split step on a
+    (1, ``--model-axis``) layout, and its sharded state."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.train import shard
+    from repro_torch.train.sharding import batch_specs
+    from repro_torch.train.step import (TrainOptions, init_train_state,
+                                        sharded_train_step)
+    n = args.model_axis
+    r = n - 1 if args.model_rank is None else args.model_rank
+    layout = MeshLayout((1, n), ("data", "model"),
+                        coords={"data": 0, "model": r})
+    cfg = configs.get_config(args.arch)
+    opts = TrainOptions(remat=True, use_kernel=True)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    state = init_train_state(g, cfg, opts, device=dev)
+    full = init_train_state(g, cfg, opts, device=dev)
+    step, sspec = sharded_train_step(cfg, layout, opts, full,
+                                     batch_specs(layout))
+
+    def run(state, batch):
+        del layout.log[:]
+        return step(state, batch)
+    return cfg, run, shard.cut_tree(full, sspec, layout)
+
+
+def _setup(torch, train, args, batch, seq, dev, n_batches):
+    from repro_torch.data import DataPipeline, PipelineConfig
+    if args.model_axis > 1:
+        cfg, step, state = _split_step(torch, args, dev)
+    else:
+        targs = train._parser().parse_args(
+            ["--arch", args.arch, "--batch", str(batch), "--seq", str(seq),
+             "--steps", "20"])
+        cfg, mesh, opts = train.build(targs, dev)
+        from repro_torch.train.step import init_train_state, make_train_step
+        step = make_train_step(cfg, mesh, opts)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        state = init_train_state(g, cfg, opts, device=dev)
     pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
                                        seq_len=seq, global_batch=batch))
     batches = [pipe.batch(i, device=dev) for i in range(n_batches)]
@@ -144,6 +202,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--small-batch", type=int, default=1)
     ap.add_argument("--small-seq", type=int, default=128)
+    ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--model-rank", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device", file=sys.stderr)
@@ -158,7 +218,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    created = ensure_process_group(dev)
+    created = args.model_axis == 1 and ensure_process_group(dev)
+    if args.model_axis > 1:
+        _tag_stand_ins(torch)
     step, state, batches = _setup(torch, train, args, args.batch,
                                   args.seq, dev, 10)
 
@@ -190,7 +252,11 @@ def main(argv=None) -> int:
     state, _, small = _profile(torch, step, state, batches[8])
 
     out = {"card": card, "arch": args.arch, "batch": args.batch,
-           "seq": args.seq, "syncs_in_a_step": len(syncs),
+           "seq": args.seq, "model_axis": args.model_axis,
+           "model_rank": (args.model_axis - 1 if args.model_rank is None
+                          else args.model_rank) if args.model_axis > 1
+           else None,
+           "syncs_in_a_step": len(syncs),
            "sync_kinds": sorted(set(syncs))[:8],
            "call_to_return_ms": call_ms, "device_ms_events": device_ms,
            **prof, "loss": loss,
@@ -200,10 +266,10 @@ def main(argv=None) -> int:
                      **{k: small[k] for k in (
                          "profiled_wall_ms", "device_busy_ms",
                          "idle_share", "device_ops",
-                         "launch_api_cpu_ms")}}}
+                         "launch_api_cpu_ms", "stand_in")}}}
     for k in ("syncs_in_a_step", "call_to_return_ms", "device_ms_events",
               "profiled_wall_ms", "device_busy_ms", "idle_share",
-              "device_ops", "launch_api_cpu_ms"):
+              "device_ops", "launch_api_cpu_ms", "stand_in"):
         print(f"{k}: {out[k]}")
     print(f"small: {out['small']}")
     for k, v in out["device_ms_by_group"].items():
