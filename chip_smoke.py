@@ -292,6 +292,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
              state stays, each at most the rows times the widest such
              output in f32.
 
+11. examples — phase (E), after (M): the four scripts of
+             ``examples_torch/``, loaded by path and called through their
+             functions, the counters reset just before each and read
+             just after: (E1) the playground at 64 ranks in pods of 16,
+             each allgather schedule one transport launch bitwise the
+             SimTransport; (E2) the quickstart's one-card form: one
+             launch a schedule algorithm plus one for the neighbor
+             exchange, the allreduce exactly [112, 120, 128, 136] on
+             every rank, the exchange bitwise the oracle and ``run_sim``;
+             (E3) serve_batch at qwen3-14b's published config in bf16,
+             batch 8, 24 + 24 tokens: parameter bytes, peak memory, ms a
+             step (median of the 47) and tok/s beside the weights' read
+             bound, every token in [0, vocab); then the config cut to 4
+             layers in f32, its decode logits at the prompt positions
+             within atol = rtol = 1e-4 of the flash-kernel prefill (4
+             launches); (E4) ``train_smollm --full --steps 30``: 64 wgmma
+             flash launches a step, every loss finite, the last three's
+             mean below the first three's, ms a step (steps 5-25) and
+             tokens/s.  Each line carries the card's name and power
+             limit; the kernels line's ``examples`` entries hold the
+             launches.
+
 The last two lines of standard output are the kernels JSON object and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository around it, the script exits non-zero and prints no
@@ -424,6 +446,17 @@ def main() -> int:
     flash["model_axis"] = axis["flash"]
     flash["launches_by_model"][f"{TRAIN_ARCH}-split-rank-step"] = \
         axis["flash"]["launches"] // AXIS_STEPS
+    del axis, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex = examples(torch, dev, card)
+    transport["examples"] = {"collective_playground":
+                             ex["playground"]["launches"],
+                             "quickstart": ex["quickstart"]["launches"]}
+    flash["examples"] = {
+        "serve_batch": ex["serve_batch"]["decode_launches"],
+        "serve_batch_f32_cut_prefill": ex["serve_batch"]["cut_prefill_flash"],
+        "train_smollm": ex["train_smollm"]["flash_launches"]}
     print(f"phases of the remaining archs (s): {arch_s}; whole run "
           f"{time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4864,6 +4897,248 @@ def axis_decode(torch, dev, arch) -> dict:
     return {"arch": arch, "param_bytes": pbytes, "full_bytes": full_bytes,
             "ms_per_step": ms, "record": summary,
             "model_gathers": expect[0], "model_gather_bound": expect[1]}
+
+
+# ---------------------------------------------------------------------------
+# examples
+# ---------------------------------------------------------------------------
+
+EXAMPLE_CUT_LAYERS = 4           # (E3): the f32 cut held against prefill
+# f32 decode against prefill: the f32 tolerance of tests/test_torch_model.py
+EXAMPLE_DECODE_TOL = 1e-4
+EXAMPLE_TRAIN_STEPS = 30         # (E4): train_smollm --full --steps 30
+EXAMPLE_TIMED = slice(4, 25)     # (E4): steps 5-25
+
+
+def _example(name: str):
+    """``examples_torch/<name>.py`` loaded by path (nothing runs at
+    import)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples(torch, dev, card: str) -> dict:
+    """Phase (E): the four examples of ``examples_torch/`` through their
+    functions, the counters reset just before each and read just after.
+    Returns the launches for the kernels line."""
+    t0 = time.perf_counter()
+    out = {"playground": example_playground(torch, dev, card),
+           "quickstart": example_quickstart(torch, dev, card)}
+    out["serve_batch"] = example_serve(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train_smollm"] = example_train(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"examples: phase {out['seconds']:.2f} s", flush=True)
+    return out
+
+
+def example_playground(torch, dev, card: str) -> dict:
+    """(E1) collective_playground at its defaults (64 ranks, 16 a pod):
+    the table, and each allgather schedule through
+    ``KernelTransport.run_global``, one launch each, bitwise the
+    SimTransport (the script checks)."""
+    from repro_torch import cuda
+    pg = _example("collective_playground")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    res = pg.run(device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    n = len(res["kernel_allgathers"])
+    _require(n > 0 and launches["schedule_exec"] == n
+             and sum(launches.values()) == n,
+             f"playground: {n} allgather schedules, launches {launches}")
+    dt = time.perf_counter() - t0
+    print(f"examples E1 | collective_playground, 64 ranks in pods of 16: "
+          f"{len(res['lines']) - 3} schedules in the table, {n} allgathers "
+          f"({', '.join(res['kernel_allgathers'])}) through the transport "
+          f"kernel, {launches['schedule_exec']} launches, each bitwise the "
+          f"SimTransport; {dt:.2f} s on the host ({card})", flush=True)
+    return {"launches": launches["schedule_exec"],
+            "allgathers": res["kernel_allgathers"], "seconds": dt}
+
+
+def example_quickstart(torch, dev, card: str) -> dict:
+    """(E2) quickstart's one-card form: one transport launch per
+    schedule algorithm plus one for the neighbor exchange; the allreduce
+    values exactly the integers the CPU prints; the neighbor exchange
+    bitwise the SimTransport oracle on the same global buffer and its
+    recv rows bitwise ``run_sim``."""
+    from repro_torch import cuda
+    from repro_torch.core.plan import build_plan, run_sim
+    from repro_torch.core.topology import Topology
+    from repro_torch.core.transport import SimTransport
+
+    qs = _example("quickstart")
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    res = qs.run_one_card(dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    scheduled = [a for a, r in res["algorithms"].items() if r != "xla"]
+    _require(launches["schedule_exec"] == len(scheduled) + 1
+             and sum(launches.values()) == len(scheduled) + 1,
+             f"quickstart: launches {launches}, want one for each of "
+             f"{scheduled} and one for the neighbor exchange")
+    x, graph, values = qs.inputs()
+    want = x.sum(0)                       # exact: small integers
+    for algo, out in res["allreduce"].items():
+        _require(np.array_equal(out, np.broadcast_to(want, out.shape)),
+                 f"quickstart {algo}: {out[0]} != {want}")
+    topo = Topology(nranks=qs.NRANKS, ranks_per_pod=qs.RANKS_PER_POD)
+    plan = build_plan(graph, topo, aggregate=True)
+    nbuf = np.zeros((qs.NRANKS, plan.buf_rows) + values.shape[2:],
+                    np.float32)
+    nbuf[:, : values.shape[1]] = values
+    oracle = SimTransport(qs.NRANKS, topo).run_reference(plan.schedule, nbuf)
+    _require(np.array_equal(res["neighbor_out"].view(np.uint32),
+                            oracle.view(np.uint32)),
+             "quickstart: the neighbor exchange differs from the oracle")
+    m = max(plan.recv_sizes)
+    for r, rows in enumerate(run_sim(plan, list(values))):
+        got = res["recv"][r * m: r * m + len(rows)]
+        _require(np.array_equal(got.view(np.uint32), rows.view(np.uint32)),
+                 f"quickstart: rank {r}'s recv rows differ from run_sim")
+    print(f"examples E2 | quickstart, one-card form on 8 ranks in pods of "
+          f"4: algorithms {res['algorithms']}, transport launches "
+          f"{launches['schedule_exec']} ({len(scheduled)} schedules + the "
+          f"neighbor exchange), allreduce {want.tolist()} exactly on every "
+          f"rank, the neighbor exchange bitwise the oracle and run_sim "
+          f"({card})", flush=True)
+    return {"launches": launches["schedule_exec"],
+            "algorithms": res["algorithms"]}
+
+
+def example_serve(torch, dev, card: str) -> dict:
+    """(E3) serve_batch at full width: qwen3-14b's published config in
+    bf16 at the reference's batch and lengths (47 decode steps); then the
+    config cut to its first layers in f32, its decode logits at every
+    prompt position held against the flash-kernel prefill."""
+    from repro_torch import configs, cuda
+    from repro_torch.serve.step import ServeOptions, make_prefill_step
+
+    sb = _example("serve_batch")
+    cfg = configs.get_config(sb.ARCH)
+    B, P, G = sb.BATCH, sb.PROMPT, sb.GEN
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = sb.make_weights(cfg, dev)
+    pbytes = sum(t.numel() * t.element_size()
+                 for t in params.state_dict().values())
+    bound_ms = pbytes / HBM_BYTES_PER_S * 1e3
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    res = sb.run(cfg, B, P, G, dev, params=params)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    _require(tuple(toks.shape) == (B, G) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        f"serve_batch: tokens {tuple(toks.shape)} outside [0, "
+        f"{cfg.vocab_size})")
+    ms, wall = res["median_step_ms"], res["ms_per_step"]
+    print(f"examples E3 | serve_batch, {sb.ARCH} at full width "
+          f"({cfg.n_layers} layers), bf16, batch {B}, prompt {P}, gen {G} "
+          f"({P + G - 1} decode steps): parameters {pbytes:,} B, peak "
+          f"memory {peak / 1e9:.3f} GB; {ms:.3f} ms a step (CUDA events, "
+          f"median of the {len(res['step_ms'])} steps; the loop's wall "
+          f"{res['ms_per_step']:.3f} ms a step, {res['tok_s']:.1f} tok/s "
+          f"aggregate, {B * 1e3 / ms:.1f} tok/s at the median step); the "
+          f"weights' read bound {bound_ms:.3f} ms a step ({pbytes / 1e9:.2f} "
+          f"GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), {bound_ms / ms:.3f} "
+          f"of it; kernel launches {launches} ({card})", flush=True)
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_periods=EXAMPLE_CUT_LAYERS)
+    params = sb.make_weights(cut, dev, torch.float32)
+    res = sb.run(cut, B, P, G, dev, params=params, dtype=torch.float32,
+                 keep_logits=True)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    pre = make_prefill_step(cut, ServeOptions(use_kernel=True))(
+        params, res["requests"])
+    torch.cuda.synchronize()
+    flash = dict(cuda.LAUNCHES)["flash_attention"]
+    bodies = dict(cuda.FLASH_BODIES)
+    dec = res["logits"][:P].transpose(0, 1)           # [B, P, V]
+    err = (dec - pre).abs()
+    excess = float((err - EXAMPLE_DECODE_TOL
+                    * (1 + pre.abs())).max())
+    _require(flash == cut.n_layers,
+             f"serve_batch cut: {flash} flash launches in the prefill, "
+             f"want {cut.n_layers}")
+    _require(excess <= 0, f"serve_batch cut: decode logits off the kernel "
+                          f"prefill by {float(err.max()):.3g} (beyond atol "
+                          f"= rtol = {EXAMPLE_DECODE_TOL})")
+    print(f"examples E3 | the same config cut to {cut.n_layers} layers in "
+          f"f32: decode logits at the {P} prompt positions within atol = "
+          f"rtol = {EXAMPLE_DECODE_TOL} of the flash-kernel prefill (max "
+          f"|diff| {float(err.max()):.3g}, max |logit| "
+          f"{float(pre.abs().max()):.3g}); the prefill's flash launches "
+          f"{flash}, bodies {bodies} ({card})", flush=True)
+    del params, res, pre, dec, err
+    return {"ms_per_step": ms, "wall_ms_per_step": wall, "bound_ms": bound_ms,
+            "param_bytes": pbytes, "peak_gb": peak / 1e9,
+            "decode_launches": launches["flash_attention"],
+            "cut_prefill_flash": flash}
+
+
+def example_train(torch, dev, card: str) -> dict:
+    """(E4) train_smollm ``--full --steps 30``: 64 flash launches a step
+    on the wgmma body, every loss finite, the mean of the last 3 below
+    the first 3's; ms a step (steps 5-25) and tokens/s."""
+    import tempfile
+
+    from repro_torch import configs, cuda
+
+    ts = _example("train_smollm")
+    cfg = configs.get_config("smollm-360m")
+    n_attn = sum(1 for s in cfg.blocks() if s.mixer == "attn")
+    want = 2 * n_attn                  # the forward and the remat recompute
+    steps = EXAMPLE_TRAIN_STEPS
+    with tempfile.TemporaryDirectory(prefix="smollm_example_") as d:
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        run = ts.run(steps=steps, full=True, ckpt_dir=d, device="cuda")
+        torch.cuda.synchronize()
+        counts = _launches(cuda)
+    losses = run.losses
+    _require(len(losses) == steps and all(math.isfinite(v) for v in losses),
+             f"train_smollm losses {losses}")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    _require(last < first, f"train_smollm: loss did not decrease "
+                           f"({first:.4f} -> {last:.4f})")
+    _require(counts["flash"] == want * steps,
+             f"train_smollm: {counts['flash']} flash launches, want {want} "
+             f"a step")
+    _require(counts["bodies"]["wgmma"] == counts["flash"],
+             "train_smollm: a flash launch did not take the wgmma body")
+    ms = statistics.median(run.step_ms[EXAMPLE_TIMED])
+    tok_s = ts.BATCH * ts.SEQ / (ms / 1e3)
+    print(f"examples E4 | train_smollm --full --steps {steps} (smollm-360m, "
+          f"B {ts.BATCH} x S {ts.SEQ}, explicit DP hierarchical over a group of one, 4 "
+          f"buckets, remat): flash launches {counts['flash']} = "
+          f"{counts['flash'] / steps:g} a step, bodies {counts['bodies']}, "
+          f"transport launches {counts['transport']}; {ms:.3f} ms a step "
+          f"(CUDA events, median of steps 5-25), {tok_s:.0f} tokens/s, "
+          f"host ms from a step's call to its return "
+          f"{statistics.median(run.host_ms[EXAMPLE_TIMED]):.3f}; loss "
+          f"{first:.4f} -> {last:.4f} (means of the first and last 3), "
+          f"peak memory {run.peak_bytes / 1e9:.3f} GB ({card})", flush=True)
+    return {"flash_launches": counts["flash"],
+            "flash_per_step": counts["flash"] / steps, "ms_per_step": ms,
+            "tokens_per_s": tok_s, "losses": losses}
 
 
 if __name__ == "__main__":

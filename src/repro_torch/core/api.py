@@ -330,6 +330,20 @@ def _algorithm(collective: str, algorithm: str, policy, topo: Topology,
     return algorithm
 
 
+def resolve_schedule(collective: str, algorithm: str, topo: Topology,
+                     nbytes: int, *, policy: str | None = None):
+    """(algorithm, schedule) that ``mpix_<collective>`` runs for a call of
+    ``nbytes`` bytes a rank on ``topo``: ``"auto"`` resolved by the
+    selector under ``policy`` (the process default when None), the
+    schedule from the API's cache; None for ``"xla"``, the native
+    collective.  For callers that execute the schedule themselves, e.g.
+    on a global buffer through ``KernelTransport.run_global``."""
+    algorithm = _algorithm(collective, algorithm, policy, topo, nbytes)
+    if algorithm == "xla":
+        return algorithm, None
+    return algorithm, _schedule(collective, algorithm, topo)
+
+
 def _pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
     flat = x.reshape(-1)
     rem = (-flat.numel()) % mult

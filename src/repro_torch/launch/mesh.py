@@ -166,10 +166,16 @@ def _product(sizes):
     return out
 
 
-def _free_port() -> int:
+def free_port() -> int:
+    """A free TCP port on localhost (a process group's rendezvous)."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def under_torchrun() -> bool:
+    """True in ``torchrun``'s environment (RANK and WORLD_SIZE set)."""
+    return "WORLD_SIZE" in os.environ and "RANK" in os.environ
 
 
 def ensure_process_group(device: torch.device) -> bool:
@@ -180,13 +186,32 @@ def ensure_process_group(device: torch.device) -> bool:
     if dist.is_initialized():
         return False
     backend = "nccl" if device.type == "cuda" else "gloo"
-    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+    if under_torchrun():
         dist.init_process_group(backend)
     else:
         dist.init_process_group(
-            backend, init_method=f"tcp://localhost:{_free_port()}",
+            backend, init_method=f"tcp://localhost:{free_port()}",
             rank=0, world_size=1)
     return True
+
+
+def local_device(name: str) -> torch.device:
+    """The device ``name`` for this rank: a bare ``cuda`` is the card of
+    ``LOCAL_RANK`` (one card a rank under ``torchrun``) and becomes the
+    current device.  Without a card a ``cuda`` name stops the program
+    with an error; it never falls back to the CPU (``cpu`` runs every
+    kernel's plain version)."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(
+                f"--device {name}: no CUDA device is available; pass "
+                f"--device cpu to run the plain versions on the CPU")
+        if device.index is None:         # one card a rank
+            device = torch.device("cuda",
+                                  int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    return device
 
 
 def make_local_mesh(device: torch.device, model: int = 1) -> Mesh:

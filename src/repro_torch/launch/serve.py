@@ -81,6 +81,7 @@ import time
 import torch
 
 from repro_torch import configs
+from repro_torch.launch.mesh import local_device
 from repro_torch.models import model as M
 from repro_torch.serve.step import (ServeOptions, init_serve_cache,
                                     make_decode_step)
@@ -333,13 +334,7 @@ def _run_continuous(args, cfg, device: torch.device) -> dict:
     mpix_api.set_default_policy(args.select_policy)
     group, created = None, False
     if args.kv_transport == "dist":
-        import os
-
         import torch.distributed as dist
-        if device.type == "cuda":        # one card per rank
-            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
-                                                             0)))
-            torch.cuda.set_device(device)
         if not dist.is_initialized():
             # torchrun's environment: MASTER_ADDR/PORT, RANK, WORLD_SIZE
             dist.init_process_group(
@@ -590,11 +585,7 @@ def main(argv=None):
             f"(--kv-transport dist under torchrun); elsewhere the probe "
             f"prices with the model. Re-tune between runs with --autotune "
             f"instead.")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            f"--device {args.device}: no CUDA device is available; pass "
-            f"--device cpu to run the plain versions on the CPU")
+    device = local_device(args.device)
 
     try:
         cfg = (configs.get_smoke(args.arch) if args.smoke

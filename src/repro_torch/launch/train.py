@@ -48,8 +48,8 @@ import torch.distributed as dist
 from repro_torch import configs
 from repro_torch.core import api as mpix_api
 from repro_torch.data import DataPipeline, PipelineConfig
-from repro_torch.launch.mesh import (ensure_process_group, make_local_mesh,
-                                     make_production_mesh)
+from repro_torch.launch.mesh import (ensure_process_group, local_device,
+                                     make_local_mesh, make_production_mesh)
 from repro_torch.runtime import FaultTolerantLoop, PreemptionSignal
 from repro_torch.train import shard
 from repro_torch.train.sharding import batch_specs
@@ -232,23 +232,9 @@ def _parser():
     return ap
 
 
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit(
-                f"--device {name}: no CUDA device is available; pass "
-                f"--device cpu to run the plain versions on the CPU")
-        if device.index is None:         # one card a rank
-            device = torch.device("cuda",
-                                  int(os.environ.get("LOCAL_RANK", 0)))
-        torch.cuda.set_device(device)
-    return device
-
-
 def main(argv=None) -> TrainRun:
     args = _parser().parse_args(argv)
-    device = _device(args.device)
+    device = local_device(args.device)
     created = ensure_process_group(device)
     try:
         return _train(args, device)
